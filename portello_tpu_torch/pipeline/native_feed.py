@@ -1,0 +1,276 @@
+"""Native phase-2 feed: the C++ read scanner (``ptscan.cc``) driving the
+PyTorch forward step.
+
+The scanner, its ctypes layer and the CRAM feeder are shared with
+``portello_tpu.pipeline.native_feed``; only the dispatch loop is ported:
+
+    while ptscan_next_batch(h, desc):    # C++ scans + preps one full batch
+        out = fwd_batch(desc -> device)  # one forward step (fixed shapes)
+        ptscan_post_results(h, out)      # C++ finishes + writes ready reads
+
+Slots are table slots (``resident=False``): each holds the padded cigars,
+block maps and the ``(B, max_seq)`` ref-window and read rows.  Host-shift
+routing (``PTPU_HOST_SHIFT``, on by default) left-shifts reverse-contig items
+during the C++ prep, so every batch is a forward batch.  Two batches stay in
+flight: the card computes batch N while the scanner preps batch N+1.
+
+A slot stays frozen only until its ``ptscan_post_results`` call.  The H2D
+copies here are plain pageable copies, which have consumed the slot when
+``.to(device)`` returns.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import logging
+import os
+import threading
+import time
+
+import numpy as np
+import torch
+
+from portello_tpu.pipeline.native_feed import (
+    _as_np,
+    _BatchDesc,
+    _cram_feeder,
+    _FeederAborted,
+    build_error,
+    create_scanner,
+    get_lib,
+    i32p,
+    i64p,
+    u8p,
+)
+from portello_tpu.pipeline.read_scan import get_alignment_file_header
+from portello_tpu_torch.kernels import _cuda
+from portello_tpu_torch.models.pipeline_model import (
+    DEFAULT_BUCKETS,
+    bucket_kwargs,
+    fwd_batch,
+)
+
+logger = logging.getLogger("portello-tpu")
+
+
+def _slot_tensors(d, bcfg, bs: int, device) -> tuple[torch.Tensor, ...]:
+    """The slot's arrays as fwd_batch's positional tensors on ``device``."""
+
+    def grab(ptr, cols, dtype=np.int32):
+        shape = (bs, cols) if cols else (bs,)
+        return torch.from_numpy(_as_np(ptr, shape, dtype)).to(device)
+
+    return (
+        grab(d.ops, bcfg.max_ops), grab(d.lens, bcfg.max_ops),
+        grab(d.n_ops, 0), grab(d.pos, 0),
+        grab(d.bk, bcfg.max_blocks), grab(d.bv, bcfg.max_blocks),
+        grab(d.nb, 0), grab(d.ref_win, bcfg.max_seq, np.uint8),
+        grab(d.ref_base, 0), grab(d.read_seq, bcfg.max_seq, np.uint8),
+    )
+
+
+def scan_and_remap_reads_native(
+    read_to_assembly_bam: str,
+    remapped_read_output: str,
+    unassembled_read_output: str,
+    reference,
+    ref_chrom_list,
+    all_contig_mapping_info,
+    is_target_region: bool,
+    device: torch.device,
+    cmdline: str = "",
+    batch_size: int = 512,
+    buckets=None,
+    thread_count: int = 1,
+    cram_reference=None,
+) -> dict:
+    """Native-feed phase 2 on ``device``; returns the stats dict.
+
+    Raises RuntimeError when the native library is unavailable.  CRAM input
+    streams directly: a producer thread decodes records and pushes
+    uncompressed BAM bytes into the scanner."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(f"ptscan unavailable: {build_error()}")
+    if os.environ.get("PTPU_HOST_SHIFT", "1") == "0":
+        raise RuntimeError(
+            "PTPU_HOST_SHIFT=0 selects the device-shift reverse chain, which "
+            "portello_tpu_torch does not port yet"
+        )
+
+    from portello_tpu.io.aln_input import is_cram_file
+    from portello_tpu.utils.chrom_list import ChromList
+    from portello_tpu.utils.progress import ProgressReporter
+
+    logger.info(
+        f"Processing read-to-contig alignment file '{read_to_assembly_bam}' "
+        f"(native feed, torch device {device})"
+    )
+    contig_list = ChromList.from_bam_filename(read_to_assembly_bam)
+    buckets = list(buckets if buckets is not None else DEFAULT_BUCKETS)
+    header = get_alignment_file_header(ref_chrom_list, cmdline).encode()
+
+    push_handle = None
+    feeder = None
+    feeder_state: dict = {}
+    if is_cram_file(read_to_assembly_bam):
+        logger.info("Streaming CRAM input directly into the native scanner")
+        push_handle = ctypes.c_void_p(lib.ptio_reader_open_push(0))
+        feeder = threading.Thread(
+            target=_cram_feeder,
+            args=(lib, push_handle, read_to_assembly_bam, cram_reference,
+                  feeder_state),
+            name="cram-feeder",
+            daemon=True,
+        )
+        feeder.start()
+
+    try:
+        h, _keepalive = create_scanner(
+            lib, read_to_assembly_bam, remapped_read_output,
+            unassembled_read_output, header, reference, ref_chrom_list,
+            contig_list, all_contig_mapping_info, buckets, batch_size,
+            is_target_region, None, thread_count,
+            push_reader=push_handle, resident=False,
+        )
+    except BaseException:
+        # create failed: the scanner did not take reader ownership; after
+        # push_close the feeder's next push fails, so the join is bounded
+        if push_handle is not None:
+            lib.ptio_reader_push_close(push_handle)
+            feeder.join()
+            lib.ptio_reader_close(push_handle)
+            exc = feeder_state.get("exc")
+            if exc is not None and not isinstance(exc, _FeederAborted):
+                raise exc from None
+        raise
+
+    genome_kb = sum(ci.length for ci in contig_list.data) // 1000
+    cum_len = np.zeros(len(contig_list.data) + 1, np.int64)
+    np.cumsum([ci.length for ci in contig_list.data], out=cum_len[1:])
+    progress = ProgressReporter(
+        genome_kb, "Remapped read alignments from", "assembly contig kb"
+    )
+    stats_buf = (ctypes.c_longlong * 6)()
+    timing_buf = (ctypes.c_longlong * 9)()
+    lib.ptscan_timing.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)
+    ]
+    desc = _BatchDesc()
+    t_prep = t_dev = t_post = 0.0
+    n_batches = 0
+    launches_before = dict(_cuda.launch_counts)
+    # Up to 2 dispatched batches outstanding; post_results resolves batches
+    # in emission order (the C++ side queues them FIFO).
+    in_flight: collections.deque = collections.deque()
+
+    def dispatch(d):
+        if d.is_rev:
+            raise RuntimeError(
+                "native feed emitted a device-shift reverse batch under "
+                "host-shift routing"
+            )
+        bcfg = buckets[int(d.bucket)]
+        # fixed shape: slots are always batch_size rows (EOF partials are
+        # pre-padded by the C++ side)
+        args = _slot_tensors(d, bcfg, batch_size, device)
+        return fwd_batch(*args, **bucket_kwargs(bcfg))
+
+    def post(out):
+        nonlocal t_dev, t_post
+        t0 = time.perf_counter()
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        codes = np.ascontiguousarray(host["codes"], np.int32)
+        olens = np.ascontiguousarray(host["lens"], np.int32)
+        n_out = np.ascontiguousarray(host["n_out"], np.int32)
+        opos = np.ascontiguousarray(host["ref2_pos"], np.int32)
+        mapped = host["mapped"].astype(np.uint8)
+        fallback = host["fallback"].astype(np.uint8)
+        read_len = host["read_len"].astype(np.int64)
+        t_dev += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc = lib.ptscan_post_results(
+            h, i32p(codes), i32p(olens), i32p(n_out), i32p(opos),
+            u8p(mapped), u8p(fallback), i64p(read_len),
+            ctypes.c_longlong(codes.shape[1]),
+        )
+        if rc < 0:
+            raise RuntimeError(lib.ptscan_error(h).decode())
+        t_post += time.perf_counter() - t0
+
+    try:
+        while True:
+            t0 = time.perf_counter()
+            rc = lib.ptscan_next_batch(h, ctypes.byref(desc))
+            t_prep += time.perf_counter() - t0
+            if rc < 0:
+                raise RuntimeError(lib.ptscan_error(h).decode())
+            if rc == 0:
+                break
+            if rc == 2:  # EOF with results outstanding: drain one, retry
+                post(in_flight.popleft())
+                continue
+            n_batches += 1
+            t0 = time.perf_counter()
+            in_flight.append(dispatch(desc))
+            t_dev += time.perf_counter() - t0
+            if len(in_flight) >= 2:
+                post(in_flight.popleft())
+            lib.ptscan_stats(h, stats_buf)
+            tid = int(stats_buf[5])
+            if tid > 0:
+                done = int(cum_len[tid]) // 1000
+                progress.inc(max(done - progress.count, 0))
+        while in_flight:
+            post(in_flight.popleft())
+
+        if feeder is not None:
+            feeder.join()
+            if feeder_state.get("exc") is not None:
+                raise feeder_state["exc"]
+
+        if lib.ptscan_finish(h) < 0:
+            raise RuntimeError(lib.ptscan_error(h).decode())
+        lib.ptscan_stats(h, stats_buf)
+        lib.ptscan_timing(h, timing_buf)
+    except BaseException:
+        if feeder is not None and feeder.is_alive():
+            lib.ptio_reader_push_close(push_handle)
+            feeder.join()
+        exc = feeder_state.get("exc")
+        if exc is not None and not isinstance(exc, _FeederAborted):
+            raise exc from None
+        raise
+    finally:
+        progress.clear()
+        lib.ptscan_destroy(h)
+
+    stats = {
+        "n_primary": int(stats_buf[0]),
+        "device_items": int(stats_buf[1]),
+        "host_items": int(stats_buf[2]),
+        "fallback_items": int(stats_buf[3]),
+        "n_unassembled": int(stats_buf[4]),
+        "kernel_launches": {
+            k: v - launches_before[k] for k, v in _cuda.launch_counts.items()
+        },
+    }
+    logger.info(
+        f"Lifted {stats['n_primary']} primary reads: "
+        f"{stats['device_items']} device work items, "
+        f"{stats['host_items']} host items "
+        f"({stats['fallback_items']} window/bucket fallbacks)"
+    )
+    if os.environ.get("PTPU_FEED_TIMING"):
+        logger.info(
+            f"feed timing: prep {t_prep:.2f}s, device {t_dev:.2f}s, "
+            f"finish {t_post:.2f}s over {n_batches} batches"
+        )
+        names = ("read", "prepare", "fill", "drain", "post", "shift",
+                 "finish_enc", "fin_encode", "fin_write")
+        logger.info(
+            "native phase split: "
+            + ", ".join(f"{n} {v / 1e9:.3f}s" for n, v in zip(names, timing_buf))
+        )
+    return stats

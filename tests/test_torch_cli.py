@@ -1,0 +1,158 @@
+"""PyTorch port CLI: ``python -m portello_tpu_torch.main --device cpu --feed
+native`` writes the same records as JAX's ``--device cpu --feed native`` and
+as the exact host path; ``--device cuda`` without a GPU exits non-zero."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from portello_tpu.pipeline import native_feed
+from portello_tpu.testutil.simulate import make_scenario
+
+pytestmark = pytest.mark.skipif(
+    native_feed.get_lib() is None,
+    reason=f"ptscan unavailable: {native_feed.build_error()}",
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _args(tmp_path, tag, device, *extra):
+    return [
+        "--assembly-to-ref", str(tmp_path / "asm_to_ref.bam"),
+        "--read-to-assembly", str(tmp_path / "read_to_asm.bam"),
+        "--remapped-read-output", str(tmp_path / f"remapped_{tag}.bam"),
+        "--unassembled-read-output", str(tmp_path / f"un_{tag}.bam"),
+        "--ref", str(tmp_path / "ref.fa"),
+        "--device", device, "--batch-size", "32", *extra,
+    ]
+
+
+def _records(path):
+    from portello_tpu.io.bam import BamReader
+
+    with BamReader(str(path)) as r:
+        return sorted(rec.to_sam(r.header) for rec in r)
+
+
+@pytest.fixture(scope="module")
+def scenario(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_cli")
+    make_scenario(str(d), rng=np.random.default_rng(21),
+                  n_reads_per_contig=40, read_len=300)
+    return d
+
+
+def test_port_cpu_native_equals_jax_and_host(scenario):
+    from portello_tpu.main import main as jax_main
+    from portello_tpu_torch.main import main as port_main
+
+    port_main(_args(scenario, "port", "cpu", "--feed", "native"))
+    jax_main(_args(scenario, "jax", "cpu", "--feed", "native"))
+    jax_main(_args(scenario, "host", "host"))
+    for kind in ("remapped", "un"):
+        port = _records(scenario / f"{kind}_port.bam")
+        assert port == _records(scenario / f"{kind}_jax.bam"), kind
+        assert port == _records(scenario / f"{kind}_host.bam"), kind
+    assert len(_records(scenario / "remapped_port.bam")) > 0
+
+
+def test_port_host_device_equals_host_path(scenario):
+    from portello_tpu.main import main as jax_main
+    from portello_tpu_torch.main import main as port_main
+
+    port_main(_args(scenario, "port_host", "host"))
+    jax_main(_args(scenario, "host2", "host"))
+    assert _records(scenario / "remapped_port_host.bam") == _records(
+        scenario / "remapped_host2.bam"
+    )
+
+
+def test_port_streams_cram_input(scenario, tmp_path):
+    """A CRAM read input streams into the native scanner through the shared
+    feeder thread: the same records as JAX's native feed on that CRAM, and
+    the same remapped records as the BAM (the CRAM round trip rewrites the
+    MAPQ of unmapped pass-through records)."""
+    from portello_tpu.io.bam import BamReader
+    from portello_tpu.io.cram import CramWriter
+    from portello_tpu.main import main as jax_main
+    from portello_tpu_torch.main import main as port_main
+
+    cram = tmp_path / "read_to_asm.cram"
+    with BamReader(str(scenario / "read_to_asm.bam")) as r:
+        with CramWriter(str(cram), r.header) as w:
+            for rec in r:
+                w.write(rec)
+
+    def cram_args(tag):
+        args = _args(scenario, tag, "cpu", "--feed", "native")
+        args[args.index("--read-to-assembly") + 1] = str(cram)
+        return args
+
+    port_main(cram_args("cram"))
+    jax_main(cram_args("jax_cram"))
+    port_main(_args(scenario, "bam", "cpu", "--feed", "native"))
+    for kind in ("remapped", "un"):
+        assert _records(scenario / f"{kind}_cram.bam") == _records(
+            scenario / f"{kind}_jax_cram.bam"
+        ), kind
+    assert _records(scenario / "remapped_cram.bam") == _records(
+        scenario / "remapped_bam.bam"
+    )
+
+
+def test_device_cuda_without_gpu_exits_nonzero(scenario):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    p = subprocess.run(
+        [sys.executable, "-m", "portello_tpu_torch.main",
+         *_args(scenario, "cuda", "cuda")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert p.returncode != 0
+    assert "no CUDA device" in p.stderr
+    assert not (scenario / "remapped_cuda.bam").exists()
+
+
+@pytest.mark.parametrize(
+    "extra,message",
+    [
+        (("--feed", "python"), "--feed python is not yet ported"),
+        (("--profile", "prof"), "--profile is not yet ported"),
+        (("--local-workers", "2"), "--local-workers is not yet ported"),
+    ],
+)
+def test_unported_options_are_refused(scenario, extra, message):
+    from portello_tpu_torch.main import main as port_main
+
+    with pytest.raises(SystemExit) as e:
+        port_main(_args(scenario, "refused", "cpu", *extra))
+    assert message in str(e.value.code)
+
+
+def test_device_shift_routing_is_refused(scenario, monkeypatch, capsys):
+    """PTPU_HOST_SHIFT=0 would make the scanner emit device-shift reverse
+    batches, which the port does not run: it exits 2 with the reason."""
+    from portello_tpu_torch.main import main as port_main
+
+    monkeypatch.setenv("PTPU_HOST_SHIFT", "0")
+    with pytest.raises(SystemExit) as e:
+        port_main(_args(scenario, "devshift", "cpu", "--feed", "native"))
+    assert e.value.code == 2
+    assert "PTPU_HOST_SHIFT=0" in capsys.readouterr().err
+
+
+def test_device_choices():
+    from portello_tpu_torch.main import build_parser
+
+    p = build_parser()
+    base = ["--assembly-to-ref", "a", "--read-to-assembly", "b",
+            "--remapped-read-output", "c", "--unassembled-read-output", "d",
+            "--ref", "e"]
+    assert p.parse_args(base).device == "cuda"
+    assert p.parse_args(base + ["--device", "host"]).device == "host"
+    with pytest.raises(SystemExit):
+        p.parse_args(base + ["--device", "tpu"])
