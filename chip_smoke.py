@@ -7,17 +7,25 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  -- requires a CUDA device; prints its name and nvidia-smi's
    name and power limit.
-2. build   -- builds the CUDA kernels (nvcc, sm_90a) and the native scanner.
+2. build   -- builds the CUDA kernels (nvcc, sm_90a, one process per
+   source) and the native scanner.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
    the forward step's shapes, with equality required (tolerance 0: all data
-   is integers); median CUDA-event times of both.
+   is integers); median CUDA-event times of both.  The window-runs kernel
+   runs both of its contracts, the resident one on a synthetic 3.1 Gbp
+   genome on the card (offsets past 2^31, windows at the genome's end).
 4. forward -- the forward step at B=512 HiFi items (18 kb, primary bucket)
-   on CUDA against the same step on the CPU, every output field equal;
-   ms/batch and items/s, fallback count, kernel launches.
+   in both slot modes: the table step on CUDA against the CPU, and the
+   resident step (items placed in a 3.1 GB genome) on CUDA against the
+   table step and against the resident step on the CPU, every output field
+   equal; ms/batch of both steps, device busy share, H2D bytes, fallback
+   count, kernel launches per path.
 5. e2e     -- the CLI (``python -m portello_tpu_torch.main --device cuda
-   --feed native``) on the 18 kb bench scenario; sorted SAM records must
-   equal the exact host path's (``python -m portello_tpu.main --device
-   host``); wall seconds, reads/s, item counts, kernel launches.
+   --feed native``) on the 18 kb bench scenario in resident slot mode (the
+   default) and on table slots (``PTPU_RESIDENT=0``); the sorted SAM
+   records of each must equal the exact host path's (``python -m
+   portello_tpu.main --device host``); wall seconds, reads/s, item counts,
+   H2D bytes per batch, kernel launches per path.
 
 Imports nothing of JAX.  The last line of stdout is the JSON device record.
 """
@@ -35,6 +43,14 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20260816
+GENOME_BYTES = 3_100_000_000  # GRCh38-sized resident genome (64-aligned)
+W = 48                        # the buckets' simplify window
+
+# The kernels each path must launch, read from the launch counts of one run.
+PATH_KERNELS = {
+    "resident": ("cleanup_and_compress", "window_match"),
+    "table": ("cleanup_and_compress", "match_run"),
+}
 
 
 def log(msg: str) -> None:
@@ -68,11 +84,13 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def call_ms(fn, reps: int = 20) -> tuple[float, str]:
+def call_ms(fn, reps: int = 20) -> tuple[float, str, float]:
     """Milliseconds per call of ``fn``: the device time of the kernels it
     launches, from ``torch.profiler`` over ``reps`` calls.  Where the
     profiler records no device kernels, the CUDA-event time per call over a
-    loop of ``reps`` calls instead (host launch overhead included)."""
+    loop of ``reps`` calls instead (host launch overhead included).  The
+    third value is the device activities (kernels and copies) per call, 0
+    where the profiler saw none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -85,7 +103,8 @@ def call_ms(fn, reps: int = 20) -> tuple[float, str]:
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if dev:
-        return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps, "device"
+        return (sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps,
+                "device", len(dev) / reps)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -93,7 +112,17 @@ def call_ms(fn, reps: int = 20) -> tuple[float, str]:
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps, "events"
+    return start.elapsed_time(end) / reps, "events", 0.0
+
+
+def require_launches(launches: dict, path: str, where: str) -> None:
+    """The kernels of ``path`` launched at least once, the other path's
+    window kernel never."""
+    for name in PATH_KERNELS[path]:
+        require(launches.get(name, 0) > 0, f"{where}: no {name} launch")
+    other = {"resident": "match_run", "table": "window_match"}[path]
+    require(launches.get(other, 0) == 0,
+            f"{where}: {other} launched on the {path} path")
 
 
 def max_abs_err(got, want) -> int:
@@ -190,8 +219,8 @@ def match_case(rng, b: int, c: int, w: int, length: int):
 def _timed(kernel, plain):
     """(kernel ms, plain ms, log text): device time per call, and the
     CUDA-event time of one call with its host overhead."""
-    ms, how = call_ms(kernel)
-    pms, phow = call_ms(plain)
+    ms, how, _ = call_ms(kernel)
+    pms, phow, _ = call_ms(plain)
     return ms, pms, (
         f"kernel {ms:.4f} ms, plain {pms:.4f} ms ({how}/{phow} time per "
         f"call); one call with host overhead (CUDA events): kernel "
@@ -263,48 +292,144 @@ def phase_kernels(rng):
             if (c_, rev) == (96, True):
                 results["match_run"] = (ms, pms)
     results["match_run_err"] = err2
+    results.update(phase_window_match(rng))
+    return results
+
+
+def device_genome(n: int, seed: int):
+    """A flat uint8 genome of n random ACGT bytes, made on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    genome = torch.empty(n, dtype=torch.uint8, device="cuda")
+    lut = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device="cuda")
+    chunk = 1 << 28
+    for s in range(0, n, chunk):
+        part = genome[s:s + chunk]
+        part.random_(0, 4, generator=gen)
+        part.copy_(lut[part.long()])
+    return genome
+
+
+def resident_case(rng, genome, bases, c: int, max_seq: int):
+    """Resident window-runs inputs on the card: item bases ``bases``, read
+    rows copied from the genome there with 2% mutations, packed; about 5%
+    of clusters mixed, plus clusters at the contract's edges (right window
+    at -W, left window at the row's end, odd read offsets)."""
+    import numpy as np
+    import torch
+
+    from portello_tpu_torch.kernels.resident import pack_seq_rows
+
+    n = genome.shape[0]
+    b = len(bases)
+    dev = genome.device
+    g_base = torch.from_numpy(bases).to(dev)
+    idx = g_base[:, None] + torch.arange(max_seq, device=dev)
+    rows = torch.where(idx < n, genome[idx.clamp(max=n - 1)], ord("N"))
+    rows = rows.cpu().numpy()
+    del idx
+    mut = rng.random(rows.shape) < 0.02
+    rows[mut] = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=int(mut.sum()))
+    bs = rng.integers(0, max_seq, size=(b, c)).astype(np.int32)
+    shift = np.where(rng.random((b, c)) < 0.8, 0, rng.integers(-3, 4, size=(b, c)))
+    rs = (bs + shift).astype(np.int32)
+    dl = rng.integers(1, 60, size=(b, c)).astype(np.int32)
+    il = np.where(rng.random((b, c)) < 0.5, dl,
+                  rng.integers(1, 60, size=(b, c))).astype(np.int32)
+    mixed = rng.random((b, c)) < 0.05
+    bs[:, 0], rs[:, 0], dl[:, 0], il[:, 0] = 0, 0, 0, 0
+    bs[:, 1], rs[:, 1] = max_seq, max_seq
+    rs[:, 2] = bs[:, 2] | 1
+    mixed[:, :3] = True
+    host = (pack_seq_rows(rows), bs, rs, dl, il, mixed)
+    return (genome, g_base, *(torch.from_numpy(x).to(dev) for x in host))
+
+
+def phase_window_match(rng):
+    """Kernel 3 in both contracts against its plain versions."""
+    import numpy as np
+    import torch
+
+    from portello_tpu_torch.kernels.window_match import (
+        pad_table,
+        window_match_runs_cuda,
+        window_match_runs_plain,
+        window_runs_resident_cuda,
+        window_runs_resident_plain,
+    )
+
+    dev = torch.device("cuda")
+    results = {}
+    err = 0
+    t0 = time.perf_counter()
+    genome = device_genome(GENOME_BYTES, SEED)
+    torch.cuda.synchronize()
+    n = genome.shape[0]
+    log(f"kernel window_match: {n} byte random genome made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    big = rng.integers(2**31, n - 24576, size=512).astype(np.int64)
+    big[-64:] = n - rng.integers(1, 200, size=64)
+    cases = (
+        ("primary bucket", 96, 24576,
+         rng.integers(0, n - 24576, size=512).astype(np.int64)),
+        ("widest bucket", 512, 65536,
+         rng.integers(0, n - 65536, size=512).astype(np.int64)),
+        ("bases past 2^31, 64 within 200 B of the genome end", 96, 24576, big),
+    )
+    for label, c, max_seq, bases in cases:
+        args = resident_case(rng, genome, bases, c, max_seq)
+        got = window_runs_resident_cuda(*args, W)
+        want = window_runs_resident_plain(*args, W)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        require(e == 0, f"window_match resident {label}: kernel != plain "
+                f"(max abs err {e})")
+        err = max(err, e)
+        ms, pms, times = _timed(
+            lambda: window_runs_resident_cuda(*args, W),
+            lambda: window_runs_resident_plain(*args, W),
+        )
+        mixed = args[-1]
+        log(f"kernel window_match resident B=512 C={c} W={W} "
+            f"max_seq={max_seq} ({label}; bases {int(bases.min())}.."
+            f"{int(bases.max())} of {n}): equal; {int(mixed.sum())} mixed "
+            f"clusters, mean raw_r {float(got[0][mixed].float().mean()):.2f}, "
+            f"raw_l {float(got[1][mixed].float().mean()):.2f}; {times}")
+        if label == "primary bucket":
+            results["window_match"] = (ms, pms)
+        del args, got, want
+    del genome
+    torch.cuda.empty_cache()
+
+    for c, length in ((96, 24576), (512, 65536)):
+        a, bb, ia, ib, _ = match_case(rng, 512, c, W, length)
+        ta = pad_table(torch.from_numpy(a).to(dev), 0xFE)
+        tb = pad_table(torch.from_numpy(bb).to(dev), 0xFD)
+        tia, tib = torch.from_numpy(ia).to(dev), torch.from_numpy(ib).to(dev)
+        got = window_match_runs_cuda(ta, tb, tia, tib, W)
+        want = window_match_runs_plain(ta, tb, tia, tib, W)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        require(e == 0, f"window_match Pallas contract C={c} L={length}: "
+                f"kernel != plain (max abs err {e})")
+        err = max(err, e)
+        ms, pms, times = _timed(
+            lambda: window_match_runs_cuda(ta, tb, tia, tib, W),
+            lambda: window_match_runs_plain(ta, tb, tia, tib, W),
+        )
+        log(f"kernel window_match Pallas contract B=512 C={c} W={W} "
+            f"L={length}: equal (mean run_fwd {float(got[0].float().mean()):.2f}"
+            f", run_rev {float(got[1].float().mean()):.2f}); {times}")
+    results["window_match_err"] = err
     return results
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_forward(rng):
+def _step_times(step, b: int, label: str):
+    """Host-clock, CUDA-event and device times of one forward step."""
     import torch
-
-    from portello_tpu_torch.kernels import _cuda
-    from portello_tpu_torch.models.pipeline_model import (
-        DEFAULT_BUCKETS,
-        batch_from_numpy,
-        bucket_kwargs,
-        fwd_batch,
-    )
-    from portello_tpu_torch.testutil.batchgen import make_item_arrays
-
-    bcfg = DEFAULT_BUCKETS[0]
-    b = 512
-    t0 = time.perf_counter()
-    arrays = make_item_arrays(rng, b, bcfg, read_len=18000)
-    log(f"forward: built {b} HiFi items (18 kb) in {time.perf_counter() - t0:.1f} s")
-    kw = bucket_kwargs(bcfg)
-    t0 = time.perf_counter()
-    want = fwd_batch(*batch_from_numpy(arrays, "cpu"), **kw)
-    cpu_s = time.perf_counter() - t0
-    gpu_args = batch_from_numpy(arrays, torch.device("cuda"))
-
-    _cuda.reset_launch_counts()
-    got = fwd_batch(*gpu_args, **kw)
-    torch.cuda.synchronize()
-    launches = dict(_cuda.launch_counts)
-    for name, n in launches.items():
-        require(n > 0, f"forward step launched no {name} kernel")
-    for key in want:
-        g = got[key].cpu()
-        require(g.dtype == want[key].dtype and torch.equal(g, want[key]),
-                f"forward step field {key!r}: CUDA != CPU")
-    n_fb = int(want["fallback"].sum())
-    n_mapped = int(want["mapped"].sum())
-
-    def step():
-        fwd_batch(*gpu_args, **kw)
 
     for _ in range(3):
         step()
@@ -317,15 +442,116 @@ def phase_forward(rng):
         samples.append((time.perf_counter() - t0) * 1e3)
     ms = statistics.median(samples)
     ev_ms = cuda_ms(step, reps=20)
-    dev_ms, how = call_ms(step, reps=10)
+    dev_ms, how, n_dev = call_ms(step, reps=10)
+    log(f"forward {label}: {ms:.3f} ms/batch (median of {len(samples)}, host "
+        f"clock + sync), {ev_ms:.3f} ms (CUDA events), {b / (ms / 1e3):.0f} "
+        f"items/s; {how} time {dev_ms:.3f} ms/batch in {n_dev:.0f} device "
+        f"kernels and copies, busy share {dev_ms / ms:.3f} of the host-clock "
+        f"step")
+    return ms
+
+
+def _equal_fields(got, want, what: str) -> None:
+    import torch
+
+    require(set(got) == set(want), f"{what}: output fields differ")
+    for key in want:
+        g, w = got[key].cpu(), want[key].cpu()
+        require(g.dtype == w.dtype and torch.equal(g, w),
+                f"{what}: field {key!r} differs")
+
+
+def phase_forward(rng):
+    import torch
+
+    from portello_tpu_torch.kernels import _cuda
+    from portello_tpu_torch.kernels.resident import genome_tensor
+    from portello_tpu_torch.models.pipeline_model import (
+        DEFAULT_BUCKETS,
+        batch_from_numpy,
+        bucket_kwargs,
+        fwd_batch,
+        fwd_batch_resident,
+        resident_batch_from_numpy,
+    )
+    from portello_tpu_torch.testutil.batchgen import (
+        make_item_arrays,
+        resident_from_table,
+    )
+
+    bcfg = DEFAULT_BUCKETS[0]
+    b = 512
+    cuda = torch.device("cuda")
+    t0 = time.perf_counter()
+    arrays = make_item_arrays(rng, b, bcfg, read_len=18000)
+    t1 = time.perf_counter()
+    g_sb, g_off, packed, genome_np = resident_from_table(
+        arrays, GENOME_BYTES, rng
+    )
+    res_arrays = tuple(arrays[:7]) + (g_sb, g_off, arrays[8], packed)
+    base = (g_sb.astype("int64") << 6) | g_off
+    log(f"forward: built {b} HiFi items (18 kb) in {t1 - t0:.1f} s; placed "
+        f"in a {genome_np.shape[0]} byte genome in "
+        f"{time.perf_counter() - t1:.1f} s ({int((base > 2**31).sum())} item "
+        f"bases past 2^31, the last at {int(base.max())})")
+    kw = bucket_kwargs(bcfg)
+
+    # table slots
+    t0 = time.perf_counter()
+    want = fwd_batch(*batch_from_numpy(arrays, "cpu"), **kw)
+    cpu_s = time.perf_counter() - t0
+    table_args = batch_from_numpy(arrays, cuda)
+    _cuda.reset_launch_counts()
+    table = fwd_batch(*table_args, **kw)
+    torch.cuda.synchronize()
+    launches = {"table": dict(_cuda.launch_counts)}
+    require_launches(launches["table"], "table", "forward table step")
+    _equal_fields(table, want, "forward table step CUDA vs CPU")
+
+    # resident slots: the genome goes to the card once
+    t0 = time.perf_counter()
+    genome = genome_tensor(genome_np, cuda)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_cpu = fwd_batch_resident(
+        *resident_batch_from_numpy(res_arrays, "cpu"),
+        genome_tensor(genome_np, "cpu"), **kw,
+    )
+    res_cpu_s = time.perf_counter() - t0
+    res_args = resident_batch_from_numpy(res_arrays, cuda)
+    _cuda.reset_launch_counts()
+    res = fwd_batch_resident(*res_args, genome, **kw)
+    torch.cuda.synchronize()
+    launches["resident"] = dict(_cuda.launch_counts)
+    require_launches(launches["resident"], "resident", "forward resident step")
+    _equal_fields(res, table, "forward resident step vs table step (CUDA)")
+    _equal_fields(res, res_cpu, "forward resident step CUDA vs CPU")
+
+    n_fb = int(want["fallback"].sum())
+    n_mapped = int(want["mapped"].sum())
+    h2d = {"table": sum(t.nbytes for t in table_args),
+           "resident": sum(t.nbytes for t in res_args)}
     log(f"forward B={b} K_lift={2 * kw['max_rows']} max_out={kw['max_out']}: "
-        f"CUDA == CPU on all {len(want)} fields; mapped {n_mapped}, fallback "
-        f"{n_fb}; launches {json.dumps(launches)}")
-    log(f"forward: {ms:.3f} ms/batch (median of {len(samples)}, host clock + "
-        f"sync), {ev_ms:.3f} ms (CUDA events), {b / (ms / 1e3):.0f} items/s; "
-        f"CPU plain step {cpu_s:.2f} s")
-    log(f"forward: {how} time {dev_ms:.3f} ms/batch, busy share "
-        f"{dev_ms / ms:.3f} of the host-clock step")
+        f"table step CUDA == CPU, resident step CUDA == table step == "
+        f"resident CPU on all {len(want)} fields; mapped {n_mapped}, fallback "
+        f"{n_fb}; launches per path {json.dumps(launches)}")
+    log(f"forward: genome {genome.shape[0] / 2**20:.1f} MiB uploaded in "
+        f"{upload_s:.2f} s; H2D per batch: table {h2d['table']} bytes, "
+        f"resident {h2d['resident']} bytes; CPU plain steps: table "
+        f"{cpu_s:.2f} s, resident {res_cpu_s:.2f} s")
+    steps = {
+        "table": lambda: fwd_batch(*table_args, **kw),
+        "resident": lambda: fwd_batch_resident(*res_args, genome, **kw),
+    }
+    times = {"table": [], "resident": []}
+    for mode in ("table", "resident", "resident", "table"):  # in turns
+        times[mode].append(_step_times(steps[mode], b, f"{mode} step"))
+    log("forward: ms/batch (host clock) table "
+        + " / ".join(f"{t:.3f}" for t in times["table"]) + ", resident "
+        + " / ".join(f"{t:.3f}" for t in times["resident"]))
+    del genome
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -335,7 +561,8 @@ _LIFTED = re.compile(
     r"\((\d+) window/bucket fallbacks\)"
 )
 _LAUNCHES = re.compile(r"kernel launches: (\{.*\})")
-_TIMING_LINES = ("feed timing:", "native phase split:", "Total Runtime:")
+_TIMING_LINES = ("feed timing:", "native phase split:", "Total Runtime:",
+                 "Resident genome:")
 
 
 def _sam_records(path):
@@ -345,8 +572,8 @@ def _sam_records(path):
         return sorted(rec.to_sam(r.header) for rec in r)
 
 
-def _cli(module, d, tag, device, extra=()):
-    env = dict(os.environ, PTPU_FEED_TIMING="1")
+def _cli(module, d, tag, device, extra=(), env_extra=None):
+    env = dict(os.environ, PTPU_FEED_TIMING="1", **(env_extra or {}))
     env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [
         sys.executable, "-m", module,
@@ -365,11 +592,15 @@ def _cli(module, d, tag, device, extra=()):
     return wall, p.stderr
 
 
+_H2D = re.compile(r"H2D per batch: (\d+) bytes \((\w+) slots, (\d+) batches\)")
+
+
 def phase_e2e():
     import numpy as np
 
     from portello_tpu.testutil.simulate import make_scenario
 
+    runs = {}
     with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as d:
         t0 = time.perf_counter()
         make_scenario(d, rng=np.random.default_rng(99), n_reads_per_contig=400,
@@ -377,39 +608,44 @@ def phase_e2e():
         log(f"e2e: bench scenario (4 contigs x 400 reads x 18 kb) built in "
             f"{time.perf_counter() - t0:.1f} s")
         threads = str(os.cpu_count() or 1)
-        # The CLI runs in its own process, whose launch counts start at 0;
-        # it logs the launches of its phase-2 run ("kernel launches: {...}").
-        wall, err = _cli("portello_tpu_torch.main", d, "cuda", "cuda",
-                         ("--feed", "native", "--threads", threads))
-        m = _LIFTED.search(err)
-        lm = _LAUNCHES.search(err)
-        require(m is not None and lm is not None,
-                f"port CLI log lacks its stats lines:\n{err[-3000:]}")
-        n_primary, dev_items, host_items, fb_items = map(int, m.groups())
-        launches = json.loads(lm.group(1))
-        for line in err.splitlines():
-            if any(k in line for k in _TIMING_LINES):
-                log("e2e port CLI: " + line.split("] ", 1)[-1])
-        for name, n in launches.items():
-            require(n > 0, f"e2e run launched no {name} kernel")
         host_wall, _ = _cli("portello_tpu.main", d, "host", "host",
                             ("--threads", threads))
-        for kind in ("remapped", "un"):
-            got = _sam_records(os.path.join(d, f"{kind}_cuda.bam"))
-            want = _sam_records(os.path.join(d, f"{kind}_host.bam"))
-            require(got == want, f"e2e {kind} records differ from --device "
-                    f"host ({len(got)} vs {len(want)} records)")
-            if kind == "remapped":
-                require(len(got) > 0, "e2e produced no remapped records")
-                n_records = len(got)
-    log(f"e2e: --device cuda output == --device host output ({n_records} "
-        f"remapped records, sorted SAM)")
-    log(f"e2e: port CLI wall {wall:.2f} s for {n_primary} primary reads = "
-        f"{n_primary / wall:.1f} reads/s (whole process: start, phase 1, "
-        f"phase 2); device items {dev_items}, host items {host_items}, "
-        f"fallbacks {fb_items}; launches {json.dumps(launches)}; host-path "
-        f"CLI wall {host_wall:.2f} s")
-    return launches
+        want = {kind: _sam_records(os.path.join(d, f"{kind}_host.bam"))
+                for kind in ("remapped", "un")}
+        require(len(want["remapped"]) > 0, "e2e produced no remapped records")
+        # Each CLI runs in its own process, whose launch counts start at 0;
+        # it logs the launches of its phase-2 run ("kernel launches: {...}").
+        for path, env in (("resident", {}), ("table", {"PTPU_RESIDENT": "0"})):
+            wall, err = _cli("portello_tpu_torch.main", d, path, "cuda",
+                             ("--feed", "native", "--threads", threads), env)
+            m = _LIFTED.search(err)
+            lm = _LAUNCHES.search(err)
+            hm = _H2D.search(err)
+            require(m is not None and lm is not None and hm is not None,
+                    f"port CLI log lacks its stats lines:\n{err[-3000:]}")
+            require(hm.group(2) == path, f"e2e {path} run used "
+                    f"{hm.group(2)} slots")
+            launches = json.loads(lm.group(1))
+            require_launches(launches, path, f"e2e {path} run")
+            for line in err.splitlines():
+                if any(k in line for k in _TIMING_LINES):
+                    log(f"e2e port CLI ({path}): " + line.split("] ", 1)[-1])
+            for kind in ("remapped", "un"):
+                got = _sam_records(os.path.join(d, f"{kind}_{path}.bam"))
+                require(got == want[kind], f"e2e {path} {kind} records "
+                        f"differ from --device host ({len(got)} vs "
+                        f"{len(want[kind])} records)")
+            n_primary, dev_items, host_items, fb_items = map(int, m.groups())
+            log(f"e2e {path}: --device cuda output == --device host output "
+                f"({len(want['remapped'])} remapped records, sorted SAM); "
+                f"port CLI wall {wall:.2f} s for {n_primary} primary reads = "
+                f"{n_primary / wall:.1f} reads/s (whole process); device "
+                f"items {dev_items}, host items {host_items}, fallbacks "
+                f"{fb_items}; H2D {hm.group(1)} bytes/batch over "
+                f"{hm.group(3)} batches; launches {json.dumps(launches)}")
+            runs[path] = launches
+    log(f"e2e: host-path CLI wall {host_wall:.2f} s")
+    return runs
 
 
 def main() -> int:
@@ -431,7 +667,7 @@ def main() -> int:
         rng = np.random.default_rng(SEED)
         kres = phase_kernels(rng)
         phase_forward(rng)
-        e2e_launches = phase_e2e()
+        e2e = phase_e2e()
         require("jax" not in sys.modules, "jax was imported")
     except Exception as e:  # every phase failure ends the run non-zero
         import traceback
@@ -440,12 +676,14 @@ def main() -> int:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
 
+    # launches: the main path's run (resident slots) for its kernels, the
+    # table-slot run for match_run
     kernels = [
         {
             "name": "cleanup_and_compress", "route": "cuda",
             "source": "portello_tpu_torch/csrc/compress.cu",
             "replaces": "portello_tpu/kernels/pallas/compress_pallas.py:124",
-            "launches": e2e_launches["cleanup_and_compress"],
+            "launches": e2e["resident"]["cleanup_and_compress"],
             "max_abs_err": kres["cleanup_and_compress_err"],
             "ms": kres["cleanup_and_compress"][0],
             "plain_ms": kres["cleanup_and_compress"][1],
@@ -454,10 +692,19 @@ def main() -> int:
             "name": "match_run", "route": "cuda",
             "source": "portello_tpu_torch/csrc/match_run.cu",
             "replaces": "portello_tpu/kernels/pallas/match_run_pallas.py:78",
-            "launches": e2e_launches["match_run"],
+            "launches": e2e["table"]["match_run"],
             "max_abs_err": kres["match_run_err"],
             "ms": kres["match_run"][0],
             "plain_ms": kres["match_run"][1],
+        },
+        {
+            "name": "window_match", "route": "cuda",
+            "source": "portello_tpu_torch/csrc/window_match.cu",
+            "replaces": "portello_tpu/kernels/pallas/window_match.py:96",
+            "launches": e2e["resident"]["window_match"],
+            "max_abs_err": kres["window_match_err"],
+            "ms": kres["window_match"][0],
+            "plain_ms": kres["window_match"][1],
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -5,10 +5,11 @@ against bit for bit by ``tests/test_torch_*.py``).  Module names mirror the
 JAX package so each counterpart is easy to find:
 
 - ``kernels``   batched ``(B, ...)`` int32 PyTorch ops for the liftover,
-  cleanup+compress, cluster and simplify stages.  Two stages run as CUDA C++
-  kernels written for Hopper (``csrc/``), each with a plain PyTorch version
-  beside it that runs for CPU tensors.
-- ``models``    the bucket table and the forward step ``fwd_batch``.
+  cleanup+compress, cluster and simplify stages, and the resident genome.
+  Three stages run as CUDA C++ kernels written for Hopper (``csrc/``), each
+  with a plain PyTorch version beside it that runs for CPU tensors.
+- ``models``    the bucket table and the forward steps ``fwd_batch_resident``
+  (resident slots, the default) and ``fwd_batch`` (table slots).
 - ``pipeline``  the native C++ feed (shared with ``portello_tpu``) driving
   the forward step.
 - ``main``      the CLI: ``python -m portello_tpu_torch.main``.

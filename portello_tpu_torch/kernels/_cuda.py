@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels (``portello_tpu_torch/csrc``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library with
-a plain C interface, loaded with ctypes.  The build runs at first CUDA use,
+The sources compile with ``nvcc`` for ``sm_90a``, one process per source, all
+started together, and link into one shared library with a plain C
+interface, loaded with ctypes.  The build runs at first CUDA use,
 writes into ``portello_tpu_torch/_build/`` and is rebuilt whenever a source is
 newer than the library.  A failed build raises with nvcc's stderr; nothing
 falls back to another path.
@@ -25,14 +26,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SO_PATH = os.path.join(BUILD_DIR, "libportello_kernels.so")
-SOURCES = ("compress.cu", "match_run.cu")
+SOURCES = ("compress.cu", "match_run.cu", "window_match.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # Launches per kernel wrapper, counted where the kernel is launched.
-launch_counts = {"cleanup_and_compress": 0, "match_run": 0}
+launch_counts = {"cleanup_and_compress": 0, "match_run": 0, "window_match": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -68,20 +69,43 @@ def _stale() -> bool:
 def build() -> float:
     """Compile the kernels into ``SO_PATH``; returns the build seconds.
 
-    Compiles into a per-process temp file and publishes it atomically, so a
-    concurrent process never loads a half-written library."""
+    Each source compiles to an object in its own nvcc process, all at once;
+    one more nvcc links them.  The library is linked into a per-process temp
+    file and published atomically, so a concurrent process never loads a
+    half-written library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{SO_PATH}.tmp{os.getpid()}"
-    srcs = [os.path.join(CSRC, f) for f in SOURCES]
+    tag = f"tmp{os.getpid()}"
+    tmp = f"{SO_PATH}.{tag}"
+    objs = [os.path.join(BUILD_DIR, f"{f}.{tag}.o") for f in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc build failed:\n{proc.stderr}")
-    os.replace(tmp, SO_PATH)
+    try:
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for src, obj in zip(SOURCES, objs)
+        ]
+        errors = []
+        for src, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src}:\n{err}")
+        if not errors:
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                errors.append(f"link:\n{proc.stderr}")
+        if errors:
+            raise RuntimeError("nvcc build failed:\n" + "\n".join(errors))
+        os.replace(tmp, SO_PATH)
+    finally:
+        for f in (*objs, tmp):
+            if os.path.exists(f):
+                os.remove(f)
     return time.perf_counter() - t0
 
 
@@ -94,6 +118,13 @@ def _bind(path: str):
     ]
     lib.ptt_match_run.restype = i
     lib.ptt_match_run.argtypes = [p, i, p, i, p, p, p, i, i, i, i, p, p]
+    ll = ctypes.c_longlong
+    lib.ptt_window_runs_resident.restype = i
+    lib.ptt_window_runs_resident.argtypes = [
+        p, ll, p, p, i, p, p, p, p, p, i, i, i, p, p, p,
+    ]
+    lib.ptt_window_match.restype = i
+    lib.ptt_window_match.argtypes = [p, p, i, p, p, i, i, i, p, p, p]
     return lib
 
 

@@ -7,7 +7,8 @@ loops (simplify_alignment_indels.rs:54-92) become two bounded-window common
 runs (``match_run_right`` then ``match_run_left``); a window saturation sets
 the per-item ``fallback`` flag and the item is finished exactly on host.
 
-Coordinates: ``ref_pos`` is relative to the item's ``ref_win`` row.
+Coordinates: ``ref_pos`` is relative to the item's ``ref_win`` row (table
+slots) or to its global genome offset ``g_base`` (resident slots).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from portello_tpu_torch.kernels.cluster_utils import (
     match_run_left,
     match_run_right,
 )
+from portello_tpu_torch.kernels.window_match import window_runs_resident
 
 _I32 = torch.int32
 
@@ -69,6 +71,31 @@ def simplify_batch(codes, lens, ref_pos, ref_win, read_seq, *, max_clusters,
     raw_r, _ = match_run_right(ref_win, bs + dl, read_seq, rs + il, m0, window)
     raw_l, _ = match_run_left(
         ref_win, bs, read_seq, rs, m0 - torch.minimum(raw_r, m0), window
+    )
+    return _finish_from_runs(
+        codes, lens, ref_pos, cl, cvalid, pure, one_one, mixed, raw_r, raw_l,
+        max_clusters=max_clusters, window=window, max_out=max_out,
+    )
+
+
+def simplify_batch_resident(codes, lens, ref_pos, genome, g_base, read_packed,
+                            *, max_clusters, window, max_out):
+    """``simplify_batch`` with the genome resident and the read rows packed
+    (the JAX package's ``simplify_batch_compact_resident``).
+
+    genome: (N,) uint8 flat genome; g_base: (B,) int64 global byte offset
+    that ``ref_pos`` is relative to; read_packed: (B, Lp) uint8 BAM nibble
+    rows.  The raw runs of every mixed cluster come from one window-runs
+    launch and take no limit; ``_finish_from_runs`` caps them.  The JAX
+    package's batch compaction (``_compact_core``) is not carried over, so
+    every mixed cluster gets its runs and the items flagged here are a
+    subset of those the JAX resident step flags."""
+    cl, cvalid, pure, one_one, mixed = _cluster_cases(
+        codes, lens, ref_pos, max_clusters
+    )
+    raw_r, raw_l = window_runs_resident(
+        genome, g_base, read_packed, cl["ref_start"], cl["read_start"],
+        cl["del_len"], cl["ins_len"], mixed, window,
     )
     return _finish_from_runs(
         codes, lens, ref_pos, cl, cvalid, pure, one_one, mixed, raw_r, raw_l,

@@ -8,8 +8,10 @@ validation it reuses), except ``--device``:
 - ``cpu``: the same step with the kernels' plain PyTorch versions.
 - ``host``: the exact host oracle path (``read_scan.scan_and_remap_reads``).
 
-Phase 2 runs on the native C++ feed (``--feed native``, or ``auto``).  Not
-ported yet, and refused with a message: ``--feed python``, ``--profile``,
+Phase 2 runs on the native C++ feed (``--feed native``, or ``auto``), in
+resident slot mode (the genome stays on the device; ``PTPU_RESIDENT=0``
+selects table slots instead, as in ``portello_tpu``).  Not ported yet, and
+refused with a message: ``--feed python``, ``--profile``,
 ``--num-hosts``/``--coordinator`` and ``--local-workers``.
 """
 

@@ -8,10 +8,15 @@ The scanner, its ctypes layer and the CRAM feeder are shared with
         out = fwd_batch(desc -> device)  # one forward step (fixed shapes)
         ptscan_post_results(h, out)      # C++ finishes + writes ready reads
 
-Slots are table slots (``resident=False``): each holds the padded cigars,
-block maps and the ``(B, max_seq)`` ref-window and read rows.  Host-shift
-routing (``PTPU_HOST_SHIFT``, on by default) left-shifts reverse-contig items
-during the C++ prep, so every batch is a forward batch.  Two batches stay in
+Slots come in two modes.  Resident slot mode (the default; ``PTPU_RESIDENT=0``
+selects table slots) keeps the whole genome on the device for the run,
+built once by ``build_global_ref``; a slot then holds the padded cigars,
+block maps, the read rows packed as BAM nibbles and each item's reference
+chromosome, and the step is ``fwd_batch_resident``.  Table slots
+(``resident=False``) hold the ``(B, max_seq)`` ref-window and read rows
+instead, and the step is ``fwd_batch``.  Host-shift routing
+(``PTPU_HOST_SHIFT``, on by default) left-shifts reverse-contig items during
+the C++ prep, so every batch is a forward batch.  Two batches stay in
 flight: the card computes batch N while the scanner preps batch N+1.
 
 A slot stays frozen only until its ``ptscan_post_results`` call.  The H2D
@@ -45,29 +50,73 @@ from portello_tpu.pipeline.native_feed import (
 )
 from portello_tpu.pipeline.read_scan import get_alignment_file_header
 from portello_tpu_torch.kernels import _cuda
+from portello_tpu_torch.kernels.resident import (
+    build_global_ref,
+    genome_tensor,
+    split_global_base,
+)
 from portello_tpu_torch.models.pipeline_model import (
     DEFAULT_BUCKETS,
     bucket_kwargs,
     fwd_batch,
+    fwd_batch_resident,
 )
 
 logger = logging.getLogger("portello-tpu")
 
 
-def _slot_tensors(d, bcfg, bs: int, device) -> tuple[torch.Tensor, ...]:
-    """The slot's arrays as fwd_batch's positional tensors on ``device``."""
+def _grab(ptr, bs: int, cols: int, dtype=np.int32) -> np.ndarray:
+    return _as_np(ptr, (bs, cols) if cols else (bs,), dtype)
 
-    def grab(ptr, cols, dtype=np.int32):
-        shape = (bs, cols) if cols else (bs,)
-        return torch.from_numpy(_as_np(ptr, shape, dtype)).to(device)
 
+def _cigar_arrays(d, bcfg, bs: int) -> tuple[np.ndarray, ...]:
+    """The slot's cigars and block maps, the first seven inputs of both
+    forward steps."""
     return (
-        grab(d.ops, bcfg.max_ops), grab(d.lens, bcfg.max_ops),
-        grab(d.n_ops, 0), grab(d.pos, 0),
-        grab(d.bk, bcfg.max_blocks), grab(d.bv, bcfg.max_blocks),
-        grab(d.nb, 0), grab(d.ref_win, bcfg.max_seq, np.uint8),
-        grab(d.ref_base, 0), grab(d.read_seq, bcfg.max_seq, np.uint8),
+        _grab(d.ops, bs, bcfg.max_ops), _grab(d.lens, bs, bcfg.max_ops),
+        _grab(d.n_ops, bs, 0), _grab(d.pos, bs, 0),
+        _grab(d.bk, bs, bcfg.max_blocks), _grab(d.bv, bs, bcfg.max_blocks),
+        _grab(d.nb, bs, 0),
     )
+
+
+def _slot_tensors(d, bcfg, bs: int, device) -> tuple[torch.Tensor, ...]:
+    """A table slot's arrays as fwd_batch's positional tensors on
+    ``device``."""
+    arrays = _cigar_arrays(d, bcfg, bs) + (
+        _grab(d.ref_win, bs, bcfg.max_seq, np.uint8),
+        _grab(d.ref_base, bs, 0),
+        _grab(d.read_seq, bs, bcfg.max_seq, np.uint8),
+    )
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+
+def _resident_slot_tensors(d, bcfg, bs: int, device, goff: np.ndarray
+                           ) -> tuple[torch.Tensor, ...]:
+    """A resident slot's arrays as fwd_batch_resident's positional tensors
+    (without the genome) on ``device``.
+
+    A resident slot has no ref-window or read tables (null pointers); its
+    packed read rows and reference chromosome index are read instead, and
+    each item's global base ``goff[ref_chrom] + ref_base`` is split into
+    (superblock, residue) here on the host."""
+    ref_base = _grab(d.ref_base, bs, 0)
+    ref_chrom = _grab(d.ref_chrom, bs, 0)
+    g_sb, g_off = split_global_base(goff[ref_chrom] + ref_base.astype(np.int64))
+    arrays = _cigar_arrays(d, bcfg, bs) + (
+        g_sb, g_off, ref_base,
+        _grab(d.read_packed, bs, (bcfg.max_seq + 1) // 2, np.uint8),
+    )
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+
+def resident_mode() -> bool:
+    """Resident slot mode unless ``PTPU_RESIDENT=0`` (``1``, the JAX
+    package's switch to force it, is accepted and is the default here)."""
+    flag = os.environ.get("PTPU_RESIDENT", "")
+    if flag not in ("", "0", "1"):
+        raise ValueError(f"PTPU_RESIDENT must be 0 or 1, got {flag!r}")
+    return flag != "0"
 
 
 def scan_and_remap_reads_native(
@@ -111,6 +160,22 @@ def scan_and_remap_reads_native(
     buckets = list(buckets if buckets is not None else DEFAULT_BUCKETS)
     header = get_alignment_file_header(ref_chrom_list, cmdline).encode()
 
+    resident = resident_mode()
+    genome = res_goff = None
+    if resident:
+        # the genome goes to the device once and stays there for the run
+        t0 = time.perf_counter()
+        words, res_goff = build_global_ref(reference)
+        t1 = time.perf_counter()
+        genome = genome_tensor(words, device)
+        if genome.is_cuda:
+            torch.cuda.synchronize(device)
+        logger.info(
+            f"Resident genome: {words.nbytes / 2**20:.1f} MiB on {device} "
+            f"(built in {t1 - t0:.2f} s, uploaded in "
+            f"{time.perf_counter() - t1:.2f} s); packed read rows"
+        )
+
     push_handle = None
     feeder = None
     feeder_state: dict = {}
@@ -132,7 +197,7 @@ def scan_and_remap_reads_native(
             unassembled_read_output, header, reference, ref_chrom_list,
             contig_list, all_contig_mapping_info, buckets, batch_size,
             is_target_region, None, thread_count,
-            push_reader=push_handle, resident=False,
+            push_reader=push_handle, resident=resident,
         )
     except BaseException:
         # create failed: the scanner did not take reader ownership; after
@@ -160,12 +225,14 @@ def scan_and_remap_reads_native(
     desc = _BatchDesc()
     t_prep = t_dev = t_post = 0.0
     n_batches = 0
+    h2d_bytes = 0
     launches_before = dict(_cuda.launch_counts)
     # Up to 2 dispatched batches outstanding; post_results resolves batches
     # in emission order (the C++ side queues them FIFO).
     in_flight: collections.deque = collections.deque()
 
     def dispatch(d):
+        nonlocal h2d_bytes
         if d.is_rev:
             raise RuntimeError(
                 "native feed emitted a device-shift reverse batch under "
@@ -174,8 +241,14 @@ def scan_and_remap_reads_native(
         bcfg = buckets[int(d.bucket)]
         # fixed shape: slots are always batch_size rows (EOF partials are
         # pre-padded by the C++ side)
-        args = _slot_tensors(d, bcfg, batch_size, device)
-        return fwd_batch(*args, **bucket_kwargs(bcfg))
+        if resident:
+            args = _resident_slot_tensors(d, bcfg, batch_size, device, res_goff)
+            out = fwd_batch_resident(*args, genome, **bucket_kwargs(bcfg))
+        else:
+            args = _slot_tensors(d, bcfg, batch_size, device)
+            out = fwd_batch(*args, **bucket_kwargs(bcfg))
+        h2d_bytes += sum(a.nbytes for a in args)
+        return out
 
     def post(out):
         nonlocal t_dev, t_post
@@ -252,6 +325,8 @@ def scan_and_remap_reads_native(
         "host_items": int(stats_buf[2]),
         "fallback_items": int(stats_buf[3]),
         "n_unassembled": int(stats_buf[4]),
+        "resident": resident,
+        "h2d_bytes_per_batch": h2d_bytes // max(n_batches, 1),
         "kernel_launches": {
             k: v - launches_before[k] for k, v in _cuda.launch_counts.items()
         },
@@ -261,6 +336,10 @@ def scan_and_remap_reads_native(
         f"{stats['device_items']} device work items, "
         f"{stats['host_items']} host items "
         f"({stats['fallback_items']} window/bucket fallbacks)"
+    )
+    logger.info(
+        f"H2D per batch: {stats['h2d_bytes_per_batch']} bytes "
+        f"({'resident' if resident else 'table'} slots, {n_batches} batches)"
     )
     if os.environ.get("PTPU_FEED_TIMING"):
         logger.info(

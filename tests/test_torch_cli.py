@@ -1,6 +1,8 @@
 """PyTorch port CLI: ``python -m portello_tpu_torch.main --device cpu --feed
 native`` writes the same records as JAX's ``--device cpu --feed native`` and
-as the exact host path; ``--device cuda`` without a GPU exits non-zero."""
+as the exact host path, in resident slot mode (the default) and on table
+slots (``PTPU_RESIDENT=0``); ``--device cuda`` without a GPU exits
+non-zero."""
 
 import os
 import subprocess
@@ -58,6 +60,42 @@ def test_port_cpu_native_equals_jax_and_host(scenario):
         assert port == _records(scenario / f"{kind}_jax.bam"), kind
         assert port == _records(scenario / f"{kind}_host.bam"), kind
     assert len(_records(scenario / "remapped_port.bam")) > 0
+
+
+@pytest.mark.parametrize("resident", ["1", "0"])
+def test_port_slot_modes_equal_jax_and_host(scenario, monkeypatch, resident):
+    from portello_tpu.main import main as jax_main
+    from portello_tpu_torch.main import main as port_main
+    from portello_tpu_torch.pipeline import native_feed as port_feed
+
+    tag = f"mode{resident}"
+    jax_main(_args(scenario, f"jax_{tag}", "cpu", "--feed", "native"))
+    jax_main(_args(scenario, f"host_{tag}", "host"))
+    stats = []
+    run = port_feed.scan_and_remap_reads_native
+    monkeypatch.setattr(port_feed, "scan_and_remap_reads_native",
+                        lambda *a, **k: stats.append(run(*a, **k)) or stats[-1])
+    monkeypatch.setenv("PTPU_RESIDENT", resident)
+    port_main(_args(scenario, tag, "cpu", "--feed", "native"))
+    assert [s["resident"] for s in stats] == [resident == "1"]
+    # the packed rows are a quarter of the two byte tables they replace
+    per_batch = stats[0]["h2d_bytes_per_batch"]
+    assert (per_batch < 500_000) == (resident == "1") and per_batch > 0
+    for kind in ("remapped", "un"):
+        port = _records(scenario / f"{kind}_{tag}.bam")
+        assert port == _records(scenario / f"{kind}_jax_{tag}.bam"), kind
+        assert port == _records(scenario / f"{kind}_host_{tag}.bam"), kind
+    assert len(_records(scenario / f"remapped_{tag}.bam")) > 0
+
+
+def test_bad_resident_switch_is_refused(scenario, monkeypatch, capsys):
+    from portello_tpu_torch.main import main as port_main
+
+    monkeypatch.setenv("PTPU_RESIDENT", "yes")
+    with pytest.raises(SystemExit) as e:
+        port_main(_args(scenario, "badres", "cpu", "--feed", "native"))
+    assert e.value.code == 2
+    assert "PTPU_RESIDENT" in capsys.readouterr().err
 
 
 def test_port_host_device_equals_host_path(scenario):

@@ -36,21 +36,28 @@ def test_failed_nvcc_build_raises_with_stderr(build_dir, monkeypatch):
 
 
 def test_build_passes_sm90a_flags_and_publishes(build_dir, monkeypatch):
-    # the fake compiler records its arguments and writes the -o target
+    # the fake compiler appends its arguments (one line per process) and
+    # writes the -o target
     log = build_dir / "args.txt"
     home = _fake_nvcc(
         build_dir,
-        f'echo "$@" > {log}\n'
+        f'echo "$@" >> {log}\n'
         'while [ "$1" != "-o" ]; do shift; done\n'
         'touch "$2"\n',
     )
     monkeypatch.setenv("CUDA_HOME", home)
     _cuda.build()
-    args = log.read_text()
-    assert "arch=compute_90a,code=sm_90a" in args
+    calls = log.read_text().splitlines()
+    # one compile per source, then one link
+    assert len(calls) == len(_cuda.SOURCES) + 1
+    assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
+    assert "window_match.cu" in _cuda.SOURCES
     for src in _cuda.SOURCES:
-        assert os.path.join(_cuda.CSRC, src) in args
+        assert any(os.path.join(_cuda.CSRC, src) in c and " -c " in c
+                   for c in calls[:-1])
+    assert "-shared" in calls[-1]
     assert os.path.exists(_cuda.SO_PATH)
+    assert os.listdir(_cuda.BUILD_DIR) == [os.path.basename(_cuda.SO_PATH)]
     assert not _cuda._stale()
 
 
@@ -66,6 +73,10 @@ def test_launch_counts_count_only_successful_launches():
     _cuda.check(0, "match_run")
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         _cuda.check(700, "cleanup_and_compress")
-    assert _cuda.launch_counts == {"cleanup_and_compress": 0, "match_run": 1}
+    _cuda.check(0, "window_match")
+    _cuda.check(0, "window_match")
+    assert _cuda.launch_counts == {
+        "cleanup_and_compress": 0, "match_run": 1, "window_match": 2,
+    }
     _cuda.reset_launch_counts()
     assert set(_cuda.launch_counts.values()) == {0}

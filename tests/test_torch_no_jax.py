@@ -1,8 +1,8 @@
 """The PyTorch port never imports jax: the machine with the GPU has none.
 
 Runs in a fresh interpreter: imports every module of the port and
-``chip_smoke``, runs a small forward step and a small CLI run on the CPU,
-then checks ``sys.modules``."""
+``chip_smoke``, runs a small forward step in each slot mode and a small CLI
+run on the CPU, then checks ``sys.modules``."""
 
 import os
 import subprocess
@@ -21,13 +21,18 @@ PROGRAM = textwrap.dedent(
     import portello_tpu_torch.kernels.cigar_kernels
     import portello_tpu_torch.kernels.cluster_utils
     import portello_tpu_torch.kernels.liftover_parallel
+    import portello_tpu_torch.kernels.resident
     import portello_tpu_torch.kernels.simplify_kernel
+    import portello_tpu_torch.kernels.window_match
     import portello_tpu_torch.main
     import portello_tpu_torch.pipeline.native_feed
+    from portello_tpu_torch.kernels.resident import genome_tensor
     from portello_tpu_torch.models.batch import BucketConfig
     from portello_tpu_torch.models.pipeline_model import (
-        batch_from_numpy, bucket_kwargs, fwd_batch)
-    from portello_tpu_torch.testutil.batchgen import make_item_arrays
+        batch_from_numpy, bucket_kwargs, fwd_batch, fwd_batch_resident,
+        resident_batch_from_numpy)
+    from portello_tpu_torch.testutil.batchgen import (
+        make_item_arrays, resident_from_table)
     from portello_tpu.testutil.simulate import make_scenario
 
     bcfg = BucketConfig(max_ops=32, max_blocks=16, max_seq=2048,
@@ -35,6 +40,12 @@ PROGRAM = textwrap.dedent(
     arrays = make_item_arrays(np.random.default_rng(0), 4, bcfg, read_len=800)
     out = fwd_batch(*batch_from_numpy(arrays, "cpu"), **bucket_kwargs(bcfg))
     assert bool(out["mapped"].all())
+    g_sb, g_off, packed, genome = resident_from_table(arrays)
+    res = tuple(arrays[:7]) + (g_sb, g_off, arrays[8], packed)
+    res_out = fwd_batch_resident(
+        *resident_batch_from_numpy(res, "cpu"), genome_tensor(genome, "cpu"),
+        **bucket_kwargs(bcfg))
+    assert all(bool((res_out[k] == out[k]).all()) for k in out)
     with tempfile.TemporaryDirectory() as d:
         make_scenario(d, rng=np.random.default_rng(2), n_reads_per_contig=5,
                       read_len=300)
