@@ -10,22 +10,30 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build   -- builds the CUDA kernels (nvcc, sm_90a, one process per
    source) and the native scanner.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
-   the forward step's shapes, with equality required (tolerance 0: all data
-   is integers); median CUDA-event times of both.  The window-runs kernel
-   runs both of its contracts, the resident one on a synthetic 3.1 Gbp
-   genome on the card (offsets past 2^31, windows at the genome's end).
-4. forward -- the forward step at B=512 HiFi items (18 kb, primary bucket)
-   in both slot modes: the table step on CUDA against the CPU, and the
-   resident step (items placed in a 3.1 GB genome) on CUDA against the
-   table step and against the resident step on the CPU, every output field
-   equal; ms/batch of both steps, device busy share, H2D bytes, fallback
-   count, kernel launches per path.
-5. e2e     -- the CLI (``python -m portello_tpu_torch.main --device cuda
-   --feed native``) on the 18 kb bench scenario in resident slot mode (the
-   default) and on table slots (``PTPU_RESIDENT=0``); the sorted SAM
-   records of each must equal the exact host path's (``python -m
+   the device steps' shapes, with equality required (tolerance 0: all data
+   is integers); median CUDA-event times of both.  Kernel 1 also runs on
+   the reverse step's stage-B emission streams (K=257 and K=2049, odd
+   widths with zero-length non-PAD ops), kernel 2 on stage A's homology
+   runs (backward, contig windows, limits up to the read length).  The
+   window-runs kernel runs both of its contracts, the resident one on a
+   synthetic 3.1 Gbp genome on the card (offsets past 2^31, windows at the
+   genome's end).
+4. steps   -- at B=512 HiFi items (18 kb, primary bucket): the forward step
+   in both slot modes (the table step on CUDA against the CPU; the resident
+   step, items placed in a 3.1 GB genome, on CUDA against the table step
+   and against the resident step on the CPU) and the reverse step
+   ``rev_batch`` on CUDA against the CPU, at window base 0 and with half the
+   items at nonzero window bases; every output field equal; ms/batch of
+   each step, device busy share, H2D bytes, fallback count, kernel launches
+   per path.
+5. e2e     -- the CLI (``python -m portello_tpu_torch.main --device cuda``)
+   on the 18 kb bench scenario: the native feed in resident slot mode (the
+   default), on table slots (``PTPU_RESIDENT=0``) and under device-shift
+   routing (``PTPU_HOST_SHIFT=0``, reverse batches on table slots); the
+   Python feed under host-shift and under device-shift routing.  The sorted
+   SAM records of each must equal the exact host path's (``python -m
    portello_tpu.main --device host``); wall seconds, reads/s, item counts,
-   H2D bytes per batch, kernel launches per path.
+   H2D bytes per batch, reverse batches, kernel launches per path.
 
 Imports nothing of JAX.  The last line of stdout is the JSON device record.
 """
@@ -46,10 +54,17 @@ SEED = 20260816
 GENOME_BYTES = 3_100_000_000  # GRCh38-sized resident genome (64-aligned)
 W = 48                        # the buckets' simplify window
 
-# The kernels each path must launch, read from the launch counts of one run.
+KERNELS = ("cleanup_and_compress", "match_run", "window_match")
+
+# The kernels each path must launch, read from the launch counts of one run;
+# it must launch no other.
 PATH_KERNELS = {
     "resident": ("cleanup_and_compress", "window_match"),
     "table": ("cleanup_and_compress", "match_run"),
+    "rev": ("cleanup_and_compress", "match_run"),
+    "native_devshift": ("cleanup_and_compress", "match_run"),
+    "python": ("cleanup_and_compress", "match_run"),
+    "python_devshift": ("cleanup_and_compress", "match_run"),
 }
 
 
@@ -116,13 +131,13 @@ def call_ms(fn, reps: int = 20) -> tuple[float, str, float]:
 
 
 def require_launches(launches: dict, path: str, where: str) -> None:
-    """The kernels of ``path`` launched at least once, the other path's
-    window kernel never."""
-    for name in PATH_KERNELS[path]:
-        require(launches.get(name, 0) > 0, f"{where}: no {name} launch")
-    other = {"resident": "match_run", "table": "window_match"}[path]
-    require(launches.get(other, 0) == 0,
-            f"{where}: {other} launched on the {path} path")
+    """The kernels of ``path`` launched at least once, the others never."""
+    for name in KERNELS:
+        if name in PATH_KERNELS[path]:
+            require(launches.get(name, 0) > 0, f"{where}: no {name} launch")
+        else:
+            require(launches.get(name, 0) == 0,
+                    f"{where}: {name} launched on the {path} path")
 
 
 def max_abs_err(got, want) -> int:
@@ -228,7 +243,7 @@ def _timed(kernel, plain):
     )
 
 
-def phase_kernels(rng):
+def phase_kernels(rng, rev_arrays):
     import torch
 
     from portello_tpu_torch.kernels.cigar_kernels import (
@@ -292,7 +307,152 @@ def phase_kernels(rng):
             if (c_, rev) == (96, True):
                 results["match_run"] = (ms, pms)
     results["match_run_err"] = err2
+    shift = phase_shift_kernels(rng, rev_arrays)
+    results["cleanup_and_compress_err"] = max(err1, shift.pop("compress_err"))
+    results["match_run_err"] = max(err2, shift.pop("match_run_err"))
+    results.update(shift)
     results.update(phase_window_match(rng))
+    return results
+
+
+def with_zero_length_clips(arrays):
+    """A copy of a ``rev_batch`` batch in which every third item starts
+    with a zero-length soft clip and every third other item ends with one.
+    Stage B keeps such an op as a real code (``keep_zero``), so kernel 1
+    sees zero-length non-PAD ops.  (The feeds send reverse items with a
+    zero-length op to the host, so the main path does not produce them.)"""
+    from portello_tpu_torch.kernels.cigar_kernels import S
+
+    ops, lens, n_ops = (a.copy() for a in arrays[:3])
+    for i in range(len(n_ops)):
+        n = int(n_ops[i])
+        if i % 3 == 2 or n >= ops.shape[1]:
+            continue
+        at = 0 if i % 3 == 0 else n
+        ops[i, at + 1:n + 1] = ops[i, at:n].copy()
+        lens[i, at + 1:n + 1] = lens[i, at:n].copy()
+        ops[i, at], lens[i, at] = S, 0
+        n_ops[i] = n + 1
+    return (ops, lens, n_ops) + tuple(arrays[3:])
+
+
+def shift_case(arrays, bcfg):
+    """The reverse step's kernel inputs for a ``rev_batch`` batch, from the
+    plain stage A on the CPU: stage B's emission stream (B, 2n+1) before its
+    compress, and stage A's homology-run arguments (contig windows, suffix
+    ends, limits)."""
+    from portello_tpu_torch.kernels.cluster_utils import find_clusters
+    from portello_tpu_torch.kernels.shift_kernel import (
+        homology_run_args,
+        shift_stage_a,
+        shift_stage_b_emit,
+    )
+    from portello_tpu_torch.models.pipeline_model import rev_batch_from_numpy
+
+    t = rev_batch_from_numpy(arrays, "cpu")
+    ops, lens, wb, cwin, rseq = t[0], t[1], t[4], t[5], t[11]
+    rel = t[3] - wb
+    st = shift_stage_a(ops, lens, rel, wb, cwin, rseq,
+                       max_clusters=bcfg.max_clusters, window=bcfg.window)
+    codes, elens, _ = shift_stage_b_emit(ops, lens, st, window=bcfg.window)
+    cl = find_clusters(ops, lens, rel, bcfg.max_clusters)
+    end_ref, end_read, limit = homology_run_args(cl, wb)
+    return (codes, elens), (cwin, end_ref.contiguous(), rseq,
+                            end_read.contiguous(), limit.contiguous())
+
+
+def phase_shift_kernels(rng, rev_arrays):
+    """Kernels 1 and 2 on the inputs the reverse step gives them: stage B's
+    emission streams (odd K, zero-length non-PAD ops, a trailing flush in a
+    partial last 32-lane chunk) and stage A's homology runs (backward, on
+    contig windows, limits far above the window).  The primary bucket's
+    case is the B=512 batch of phase 4; the widest bucket's is 64 items with
+    half of them at nonzero window bases, each row repeated 8 times; in
+    both, two items in three carry a zero-length soft clip."""
+    import torch
+
+    from portello_tpu_torch.kernels.cigar_kernels import (
+        M,
+        PAD,
+        cleanup_and_compress_cuda,
+        cleanup_and_compress_plain,
+    )
+    from portello_tpu_torch.kernels.cluster_utils import (
+        match_run_cuda,
+        match_run_plain,
+    )
+    from portello_tpu_torch.models.pipeline_model import (
+        DEFAULT_BUCKETS,
+        _rev_ops_bound,
+    )
+    from portello_tpu_torch.testutil.batchgen import (
+        make_item_arrays,
+        shift_win_base,
+    )
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    wide = DEFAULT_BUCKETS[2]
+    wide_arrays, _ = shift_win_base(make_item_arrays(
+        rng, 64, wide, read_len=18000, read_error=0.03, rev=True), rng)
+    cases = []
+    for label, arrays, bcfg, rep in (
+        ("primary bucket", with_zero_length_clips(rev_arrays),
+         DEFAULT_BUCKETS[0], 1),
+        ("widest bucket", with_zero_length_clips(wide_arrays), wide, 8),
+    ):
+        stream, homology = shift_case(arrays, bcfg)
+        max_out = _rev_ops_bound(bcfg.max_ops, bcfg.resolved_max_out())
+        cases.append((label, [x.repeat(rep, 1).to(dev) for x in stream],
+                      max_out, [x.repeat(rep, 1).to(dev) for x in homology],
+                      bcfg.window, int(arrays[2].max())))
+    log(f"kernels on reverse-step inputs: plain stage A on the CPU for a "
+        f"B=512 primary batch and 64 widest-bucket items in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    results = {"compress_err": 0, "match_run_err": 0}
+    for label, (codes, lens), max_out, homology, w, max_n in cases:
+        b, k = codes.shape
+        got = cleanup_and_compress_cuda(codes, lens, max_out)
+        want = cleanup_and_compress_plain(codes, lens, max_out)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(err == 0, f"cleanup_and_compress stage-B stream ({label}) "
+                f"K={k}: kernel != plain (max abs err {err})")
+        results["compress_err"] = max(results["compress_err"], err)
+        n_zero = int(((codes != PAD) & (lens == 0)).sum())
+        n_tail = int((codes[:, -1] == M).sum())
+        ms, pms, times = _timed(
+            lambda: cleanup_and_compress_cuda(codes, lens, max_out),
+            lambda: cleanup_and_compress_plain(codes, lens, max_out),
+        )
+        log(f"kernel cleanup_and_compress stage-B stream ({label}, up to "
+            f"{max_n} ops) B={b} K={k} max_out={max_out}: equal; "
+            f"{n_zero} zero-length non-PAD ops, {n_tail} rows with the "
+            f"trailing flush in the partial last chunk, overflow rows "
+            f"{int(got[4].sum())}; {times}")
+        results[f"compress_stage_b_{label.split()[0]}"] = (k, ms, pms)
+
+        cwin, end_ref, rseq, end_read, limit = homology
+        got = match_run_cuda(cwin, end_ref, rseq, end_read, limit, w, True)
+        want = match_run_plain(cwin, end_ref, rseq, end_read, limit, w, True)
+        torch.cuda.synchronize()
+        err = max_abs_err([got], [want])
+        require(err == 0, f"match_run stage-A homology ({label}): kernel != "
+                f"plain (max abs err {err})")
+        results["match_run_err"] = max(results["match_run_err"], err)
+        ms, pms, times = _timed(
+            lambda: match_run_cuda(cwin, end_ref, rseq, end_read, limit, w, True),
+            lambda: match_run_plain(cwin, end_ref, rseq, end_read, limit, w, True),
+        )
+        live = limit > 0
+        log(f"kernel match_run stage-A homology ({label}) B={b} "
+            f"C={limit.shape[1]} W={w} L={cwin.shape[1]} backward: equal; "
+            f"{int(live.sum())} clusters, limits up to {int(limit.max())} "
+            f"({int((limit > w).sum())} above the window), runs at the "
+            f"window {int((got >= w).sum())}, mean run "
+            f"{float(got[live].float().mean()):.2f}; {times}")
+        results[f"match_run_stage_a_{label.split()[0]}"] = (ms, pms)
     return results
 
 
@@ -428,7 +588,7 @@ def phase_window_match(rng):
 
 # ---------------------------------------------------------------- phase 4
 def _step_times(step, b: int, label: str):
-    """Host-clock, CUDA-event and device times of one forward step."""
+    """Host-clock, CUDA-event and device times of one device step."""
     import torch
 
     for _ in range(3):
@@ -443,7 +603,7 @@ def _step_times(step, b: int, label: str):
     ms = statistics.median(samples)
     ev_ms = cuda_ms(step, reps=20)
     dev_ms, how, n_dev = call_ms(step, reps=10)
-    log(f"forward {label}: {ms:.3f} ms/batch (median of {len(samples)}, host "
+    log(f"{label}: {ms:.3f} ms/batch (median of {len(samples)}, host "
         f"clock + sync), {ev_ms:.3f} ms (CUDA events), {b / (ms / 1e3):.0f} "
         f"items/s; {how} time {dev_ms:.3f} ms/batch in {n_dev:.0f} device "
         f"kernels and copies, busy share {dev_ms / ms:.3f} of the host-clock "
@@ -461,7 +621,21 @@ def _equal_fields(got, want, what: str) -> None:
                 f"{what}: field {key!r} differs")
 
 
-def phase_forward(rng):
+def hifi_batch(rng):
+    """B=512 HiFi items (18 kb) in the primary bucket, as ``rev_batch``'s
+    inputs; without ``win_base`` and ``contig_win`` they are ``fwd_batch``'s."""
+    from portello_tpu_torch.models.pipeline_model import DEFAULT_BUCKETS
+    from portello_tpu_torch.testutil.batchgen import make_item_arrays
+
+    t0 = time.perf_counter()
+    arrays = make_item_arrays(rng, 512, DEFAULT_BUCKETS[0], read_len=18000,
+                              rev=True)
+    log(f"built 512 HiFi items (18 kb, primary bucket) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return arrays
+
+
+def phase_forward(rng, rev_arrays):
     import torch
 
     from portello_tpu_torch.kernels import _cuda
@@ -473,27 +647,27 @@ def phase_forward(rng):
         fwd_batch,
         fwd_batch_resident,
         resident_batch_from_numpy,
+        rev_batch,
+        rev_batch_from_numpy,
     )
     from portello_tpu_torch.testutil.batchgen import (
-        make_item_arrays,
         resident_from_table,
+        shift_win_base,
     )
 
     bcfg = DEFAULT_BUCKETS[0]
     b = 512
     cuda = torch.device("cuda")
-    t0 = time.perf_counter()
-    arrays = make_item_arrays(rng, b, bcfg, read_len=18000)
+    arrays = tuple(rev_arrays[:4]) + tuple(rev_arrays[6:])
     t1 = time.perf_counter()
     g_sb, g_off, packed, genome_np = resident_from_table(
         arrays, GENOME_BYTES, rng
     )
     res_arrays = tuple(arrays[:7]) + (g_sb, g_off, arrays[8], packed)
     base = (g_sb.astype("int64") << 6) | g_off
-    log(f"forward: built {b} HiFi items (18 kb) in {t1 - t0:.1f} s; placed "
-        f"in a {genome_np.shape[0]} byte genome in "
-        f"{time.perf_counter() - t1:.1f} s ({int((base > 2**31).sum())} item "
-        f"bases past 2^31, the last at {int(base.max())})")
+    log(f"forward: {b} HiFi items placed in a {genome_np.shape[0]} byte "
+        f"genome in {time.perf_counter() - t1:.1f} s ({int((base > 2**31).sum())}"
+        f" item bases past 2^31, the last at {int(base.max())})")
     kw = bucket_kwargs(bcfg)
 
     # table slots
@@ -528,28 +702,65 @@ def phase_forward(rng):
     _equal_fields(res, table, "forward resident step vs table step (CUDA)")
     _equal_fields(res, res_cpu, "forward resident step CUDA vs CPU")
 
+    # the reverse step, at window base 0 and with half the items at nonzero
+    # window bases (each such window cut out of a longer contig)
+    t0 = time.perf_counter()
+    rev_cpu = rev_batch(*rev_batch_from_numpy(rev_arrays, "cpu"), **kw)
+    rev_cpu_s = time.perf_counter() - t0
+    rev_args = rev_batch_from_numpy(rev_arrays, cuda)
+    _cuda.reset_launch_counts()
+    rev = rev_batch(*rev_args, **kw)
+    torch.cuda.synchronize()
+    launches["rev"] = dict(_cuda.launch_counts)
+    require_launches(launches["rev"], "rev", "reverse step")
+    _equal_fields(rev, rev_cpu, "reverse step CUDA vs CPU")
+    moved_arrays, moved = shift_win_base(rev_arrays, rng)
+    moved_cpu = rev_batch(*rev_batch_from_numpy(moved_arrays, "cpu"), **kw)
+    moved_out = rev_batch(*rev_batch_from_numpy(moved_arrays, cuda), **kw)
+    torch.cuda.synchronize()
+    _equal_fields(moved_out, moved_cpu,
+                  "reverse step at nonzero window bases CUDA vs CPU")
+    keep = ~rev_cpu["fallback"] & ~moved_cpu["fallback"]
+    for key in rev_cpu:
+        require(torch.equal(rev_cpu[key][keep], moved_cpu[key][keep]),
+                f"reverse step: field {key!r} moves with the window base")
+    wb = moved_arrays[4]
+    log(f"reverse B={b} K_stage_b={2 * bcfg.max_ops + 1} max_out="
+        f"{min(bcfg.max_ops, kw['max_out'])}: CUDA == CPU on all "
+        f"{len(rev_cpu)} fields at window base 0 and with {int(moved.sum())} "
+        f"items at window bases {int(wb[moved].min())}..{int(wb[moved].max())}"
+        f"; those equal the base-0 batch on the {int(keep.sum())} items "
+        f"neither flags; mapped {int(rev_cpu['mapped'].sum())}, fallback "
+        f"{int(rev_cpu['fallback'].sum())} (base 0) and "
+        f"{int(moved_cpu['fallback'].sum())} (moved); CPU plain step "
+        f"{rev_cpu_s:.2f} s")
+
     n_fb = int(want["fallback"].sum())
     n_mapped = int(want["mapped"].sum())
     h2d = {"table": sum(t.nbytes for t in table_args),
-           "resident": sum(t.nbytes for t in res_args)}
+           "resident": sum(t.nbytes for t in res_args),
+           "rev": sum(t.nbytes for t in rev_args)}
     log(f"forward B={b} K_lift={2 * kw['max_rows']} max_out={kw['max_out']}: "
         f"table step CUDA == CPU, resident step CUDA == table step == "
         f"resident CPU on all {len(want)} fields; mapped {n_mapped}, fallback "
         f"{n_fb}; launches per path {json.dumps(launches)}")
-    log(f"forward: genome {genome.shape[0] / 2**20:.1f} MiB uploaded in "
+    log(f"steps: genome {genome.shape[0] / 2**20:.1f} MiB uploaded in "
         f"{upload_s:.2f} s; H2D per batch: table {h2d['table']} bytes, "
-        f"resident {h2d['resident']} bytes; CPU plain steps: table "
-        f"{cpu_s:.2f} s, resident {res_cpu_s:.2f} s")
+        f"resident {h2d['resident']} bytes, reverse {h2d['rev']} bytes; CPU "
+        f"plain steps: table {cpu_s:.2f} s, resident {res_cpu_s:.2f} s")
     steps = {
         "table": lambda: fwd_batch(*table_args, **kw),
         "resident": lambda: fwd_batch_resident(*res_args, genome, **kw),
+        "rev": lambda: rev_batch(*rev_args, **kw),
     }
-    times = {"table": [], "resident": []}
-    for mode in ("table", "resident", "resident", "table"):  # in turns
-        times[mode].append(_step_times(steps[mode], b, f"{mode} step"))
-    log("forward: ms/batch (host clock) table "
-        + " / ".join(f"{t:.3f}" for t in times["table"]) + ", resident "
-        + " / ".join(f"{t:.3f}" for t in times["resident"]))
+    labels = {"table": "forward table step", "resident": "forward resident step",
+              "rev": "reverse step"}
+    times = {mode: [] for mode in steps}
+    for mode in ("table", "resident", "rev", "rev", "resident", "table"):
+        times[mode].append(_step_times(steps[mode], b, labels[mode]))
+    log("steps: ms/batch (host clock) " + ", ".join(
+        f"{mode} " + " / ".join(f"{t:.3f}" for t in times[mode])
+        for mode in steps))
     del genome
     torch.cuda.empty_cache()
     return launches
@@ -592,7 +803,43 @@ def _cli(module, d, tag, device, extra=(), env_extra=None):
     return wall, p.stderr
 
 
-_H2D = re.compile(r"H2D per batch: (\d+) bytes \((\w+) slots, (\d+) batches\)")
+_H2D = re.compile(r"H2D per batch: (\d+) bytes \((\w+) slots, (\d+) batches, "
+                  r"rev_batches (\d+) of (\d+) bytes\)")
+_PYFEED = re.compile(r"Python feed: (\d+) device batches, rev_batches (\d+)")
+
+# The CLI runs of phase 5: (path, --feed, environment).
+E2E_RUNS = (
+    ("resident", "native", {}),
+    ("table", "native", {"PTPU_RESIDENT": "0"}),
+    ("native_devshift", "native", {"PTPU_HOST_SHIFT": "0"}),
+    ("python", "python", {}),
+    ("python_devshift", "python", {"PTPU_HOST_SHIFT": "0"}),
+)
+
+
+def _feed_line(path, feed, err):
+    """The feed's own stats line: slot mode and H2D bytes for the native
+    feed, device batches for the Python feed; checks that reverse batches
+    ran exactly under device-shift routing."""
+    devshift = path.endswith("_devshift")
+    if feed == "native":
+        hm = _H2D.search(err)
+        require(hm is not None, f"e2e {path}: no H2D line:\n{err[-3000:]}")
+        mode = "resident" if path == "resident" else "table"
+        require(hm.group(2) == mode, f"e2e {path} run used {hm.group(2)} slots")
+        n_rev = int(hm.group(4))
+        text = (f"H2D {hm.group(1)} bytes/batch over {hm.group(3)} batches "
+                f"({hm.group(2)} slots), {n_rev} reverse batches of "
+                f"{hm.group(5)} bytes")
+    else:
+        pm = _PYFEED.search(err)
+        require(pm is not None, f"e2e {path}: no Python feed line:\n{err[-3000:]}")
+        n_rev = int(pm.group(2))
+        text = f"{pm.group(1)} device batches, {n_rev} reverse"
+    require((n_rev > 0) == devshift,
+            f"e2e {path}: {n_rev} reverse batches under "
+            f"{'device' if devshift else 'host'}-shift routing")
+    return text
 
 
 def phase_e2e():
@@ -615,16 +862,14 @@ def phase_e2e():
         require(len(want["remapped"]) > 0, "e2e produced no remapped records")
         # Each CLI runs in its own process, whose launch counts start at 0;
         # it logs the launches of its phase-2 run ("kernel launches: {...}").
-        for path, env in (("resident", {}), ("table", {"PTPU_RESIDENT": "0"})):
+        for path, feed, env in E2E_RUNS:
             wall, err = _cli("portello_tpu_torch.main", d, path, "cuda",
-                             ("--feed", "native", "--threads", threads), env)
+                             ("--feed", feed, "--threads", threads), env)
             m = _LIFTED.search(err)
             lm = _LAUNCHES.search(err)
-            hm = _H2D.search(err)
-            require(m is not None and lm is not None and hm is not None,
+            require(m is not None and lm is not None,
                     f"port CLI log lacks its stats lines:\n{err[-3000:]}")
-            require(hm.group(2) == path, f"e2e {path} run used "
-                    f"{hm.group(2)} slots")
+            feed_text = _feed_line(path, feed, err)
             launches = json.loads(lm.group(1))
             require_launches(launches, path, f"e2e {path} run")
             for line in err.splitlines():
@@ -636,13 +881,13 @@ def phase_e2e():
                         f"differ from --device host ({len(got)} vs "
                         f"{len(want[kind])} records)")
             n_primary, dev_items, host_items, fb_items = map(int, m.groups())
-            log(f"e2e {path}: --device cuda output == --device host output "
+            log(f"e2e {path} (--feed {feed}{''.join(f' {k}={v}' for k, v in env.items())}"
+                f"): --device cuda output == --device host output "
                 f"({len(want['remapped'])} remapped records, sorted SAM); "
                 f"port CLI wall {wall:.2f} s for {n_primary} primary reads = "
                 f"{n_primary / wall:.1f} reads/s (whole process); device "
                 f"items {dev_items}, host items {host_items}, fallbacks "
-                f"{fb_items}; H2D {hm.group(1)} bytes/batch over "
-                f"{hm.group(3)} batches; launches {json.dumps(launches)}")
+                f"{fb_items}; {feed_text}; launches {json.dumps(launches)}")
             runs[path] = launches
     log(f"e2e: host-path CLI wall {host_wall:.2f} s")
     return runs
@@ -665,8 +910,9 @@ def main() -> int:
         name, smi_line = phase_device()
         phase_build()
         rng = np.random.default_rng(SEED)
-        kres = phase_kernels(rng)
-        phase_forward(rng)
+        rev_arrays = hifi_batch(rng)
+        kres = phase_kernels(rng, rev_arrays)
+        phase_forward(rng, rev_arrays)
         e2e = phase_e2e()
         require("jax" not in sys.modules, "jax was imported")
     except Exception as e:  # every phase failure ends the run non-zero
@@ -677,7 +923,7 @@ def main() -> int:
         return 1
 
     # launches: the main path's run (resident slots) for its kernels, the
-    # table-slot run for match_run
+    # table-slot run for match_run; launches_by_path: every CLI run's
     kernels = [
         {
             "name": "cleanup_and_compress", "route": "cuda",
@@ -707,6 +953,8 @@ def main() -> int:
             "plain_ms": kres["window_match"][1],
         },
     ]
+    for k in kernels:
+        k["launches_by_path"] = {path: e2e[path][k["name"]] for path in e2e}
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

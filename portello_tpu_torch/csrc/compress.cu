@@ -9,8 +9,11 @@
 // adds need no such limit).
 //
 // What bounds it on this card: nothing wide.  Per item the pass reads K codes
-// and K lens (K = 352..3600 int32) and writes max_out codes and lens, so a
-// B=512 batch moves a few MB -- microseconds of HBM time.  The work is a
+// and K lens and writes max_out codes and lens: K = 352..3600 int32 at the
+// forward step's lift and finish sites, and the odd K = 2 * max_ops + 1
+// (257..2049) of the left shift's stage-B stream, whose last 32-lane chunk
+// is partial and may hold zero-length non-PAD ops.  A B=512 batch moves a
+// few MB -- microseconds of HBM time.  The work is a
 // chain of dependent warp-level scans (first/last align-match, previous kept
 // code, run starts, prefix sums of kept lengths), so the kernel is bound by
 // instruction latency along that chain, not by bytes or arithmetic.

@@ -16,9 +16,12 @@
 // gather path of cluster_utils.match_run_left/right does.
 //
 // What bounds it on this card: latency, not bandwidth.  At most `window`
-// (48) byte pairs are read per cluster and only mixed clusters (a few per
-// hundred items) have a nonzero limit, so a B=512 x C=96 launch touches a
-// few hundred KB; the time is the launch plus one dependent load chain.
+// (48) byte pairs are read per cluster.  In the forward step only mixed
+// clusters (a few per hundred items) have a nonzero limit; in the left
+// shift's homology run (backward, on the reversed contig's window) every
+// cluster has one, mostly far above the window and clamped to it, and the
+// run stops at the first mismatch.  A B=512 x C=96 launch touches a few
+// hundred KB; the time is the launch plus one dependent load chain.
 //
 // Design: the TPU kernel held both padded rows in VMEM per grid cell and
 // realigned 128-lane windows with rolls.  Here each thread walks its own

@@ -3,15 +3,19 @@
 The same flags and exit codes as ``portello_tpu.main`` (whose parser and
 validation it reuses), except ``--device``:
 
-- ``cuda`` (default): the forward step on the GPU, through the hand-written
+- ``cuda`` (default): the device steps on the GPU, through the hand-written
   kernels.  With no CUDA device the run exits non-zero; it never falls back.
-- ``cpu``: the same step with the kernels' plain PyTorch versions.
+- ``cpu``: the same steps with the kernels' plain PyTorch versions.
 - ``host``: the exact host oracle path (``read_scan.scan_and_remap_reads``).
 
-Phase 2 runs on the native C++ feed (``--feed native``, or ``auto``), in
-resident slot mode (the genome stays on the device; ``PTPU_RESIDENT=0``
-selects table slots instead, as in ``portello_tpu``).  Not ported yet, and
-refused with a message: ``--feed python``, ``--profile``,
+Phase 2 runs on the native C++ feed (``--feed native``, or ``auto`` when the
+scanner builds), in resident slot mode (the genome stays on the device;
+``PTPU_RESIDENT=0`` selects table slots instead, as in ``portello_tpu``), or
+on the Python feed (``--feed python``, or ``auto`` when the scanner does
+not build): the shared ``read_scan.scan_and_remap_reads`` driving the port's
+``DeviceEngine``.  ``PTPU_HOST_SHIFT=0`` selects device-shift routing on
+either feed: reverse-contig items run the reverse step ``rev_batch``.  Not
+ported yet, and refused with a message: ``--profile``,
 ``--num-hosts``/``--coordinator`` and ``--local-workers``.
 """
 
@@ -58,8 +62,6 @@ def parse_settings(argv=None) -> Settings:
 def _unported(settings: Settings) -> str | None:
     if settings.device == "host":
         return None
-    if settings.feed == "python":
-        return "--feed python is not yet ported to portello_tpu_torch"
     if settings.profile:
         return "--profile is not yet ported to portello_tpu_torch"
     if settings.num_hosts > 1 or settings.coordinator:
@@ -96,14 +98,23 @@ def run(settings: Settings) -> None:
     if refused:
         raise SystemExit(refused)
     device = select_device(settings)
+    use_native_feed = False
     if device is not None:
         from portello_tpu.pipeline.native_feed import build_error, get_lib
 
-        if get_lib() is None:
-            raise SystemExit(
-                f"--feed {settings.feed} needs the native scanner, which is "
-                f"unavailable: {build_error()}"
-            )
+        if settings.feed in ("auto", "native"):
+            if get_lib() is not None:
+                use_native_feed = True
+            elif settings.feed == "native":
+                raise SystemExit(
+                    "--feed native needs the native scanner, which is "
+                    f"unavailable: {build_error()}"
+                )
+            else:
+                logger.info(
+                    f"native scanner unavailable ({build_error()}): --feed "
+                    "auto runs the Python feed"
+                )
         logger.info(f"torch device: {device}")
 
     ref_chrom_list = ChromList.from_bam_filename(settings.assembly_to_ref_bam)
@@ -160,6 +171,33 @@ def run(settings: Settings) -> None:
             engine=None,
             thread_count=settings.thread_count,
         )
+    elif not use_native_feed:
+        from portello_tpu.pipeline.read_scan import scan_and_remap_reads
+        from portello_tpu_torch.models.pipeline_model import DeviceEngine
+
+        engine = DeviceEngine(
+            reference, assembly_contig_list, all_contig_mapping_info, device,
+            batch_size=settings.batch_size,
+        )
+        scan_and_remap_reads(
+            settings.read_to_assembly_bam,
+            settings.remapped_read_output,
+            settings.unassembled_read_output,
+            reference,
+            ref_chrom_list,
+            all_contig_mapping_info,
+            target_region is not None,
+            cmdline=cmdline,
+            engine=engine,
+            thread_count=settings.thread_count,
+        )
+        stats = engine.stats
+        logger.info(
+            f"Python feed: {stats['batches']} device batches, rev_batches "
+            f"{stats['rev_batches']} "
+            f"({'host' if engine.host_shift else 'device'}-shift routing)"
+        )
+        logger.info(f"kernel launches: {json.dumps(stats['kernel_launches'])}")
     else:
         from portello_tpu.io.aln_input import is_cram_file
         from portello_tpu_torch.pipeline.native_feed import (

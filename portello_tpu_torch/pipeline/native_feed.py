@@ -1,11 +1,11 @@
 """Native phase-2 feed: the C++ read scanner (``ptscan.cc``) driving the
-PyTorch forward step.
+PyTorch device steps.
 
 The scanner, its ctypes layer and the CRAM feeder are shared with
 ``portello_tpu.pipeline.native_feed``; only the dispatch loop is ported:
 
     while ptscan_next_batch(h, desc):    # C++ scans + preps one full batch
-        out = fwd_batch(desc -> device)  # one forward step (fixed shapes)
+        out = step(desc -> device)       # one device step (fixed shapes)
         ptscan_post_results(h, out)      # C++ finishes + writes ready reads
 
 Slots come in two modes.  Resident slot mode (the default; ``PTPU_RESIDENT=0``
@@ -16,8 +16,12 @@ chromosome, and the step is ``fwd_batch_resident``.  Table slots
 (``resident=False``) hold the ``(B, max_seq)`` ref-window and read rows
 instead, and the step is ``fwd_batch``.  Host-shift routing
 (``PTPU_HOST_SHIFT``, on by default) left-shifts reverse-contig items during
-the C++ prep, so every batch is a forward batch.  Two batches stay in
-flight: the card computes batch N while the scanner preps batch N+1.
+the C++ prep, so every batch is a forward batch.  Under device-shift routing
+(``PTPU_HOST_SHIFT=0``) the scanner emits reverse batches too, whose slots
+add the reversed contig's window, and the step for them is ``rev_batch``;
+the scanner then emits table slots only, so the feed forces table slots as
+well, whatever ``PTPU_RESIDENT`` says.  Two batches stay in flight: the
+card computes batch N while the scanner preps batch N+1.
 
 A slot stays frozen only until its ``ptscan_post_results`` call.  The H2D
 copies here are plain pageable copies, which have consumed the slot when
@@ -60,6 +64,7 @@ from portello_tpu_torch.models.pipeline_model import (
     bucket_kwargs,
     fwd_batch,
     fwd_batch_resident,
+    rev_batch,
 )
 
 logger = logging.getLogger("portello-tpu")
@@ -91,6 +96,18 @@ def _slot_tensors(d, bcfg, bs: int, device) -> tuple[torch.Tensor, ...]:
     return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
+def _rev_slot_tensors(d, bcfg, bs: int, device) -> tuple[torch.Tensor, ...]:
+    """A reverse table slot's arrays as rev_batch's positional tensors on
+    ``device``: a table slot's, with each item's window base (B,) int32 and
+    reversed-contig window (B, max_seq) uint8 after its position."""
+    table = _slot_tensors(d, bcfg, bs, device)
+    rev = (
+        torch.from_numpy(_grab(d.win_base, bs, 0)).to(device),
+        torch.from_numpy(_grab(d.contig_win, bs, bcfg.max_seq, np.uint8)).to(device),
+    )
+    return table[:4] + rev + table[4:]
+
+
 def _resident_slot_tensors(d, bcfg, bs: int, device, goff: np.ndarray
                            ) -> tuple[torch.Tensor, ...]:
     """A resident slot's arrays as fwd_batch_resident's positional tensors
@@ -110,13 +127,22 @@ def _resident_slot_tensors(d, bcfg, bs: int, device, goff: np.ndarray
     return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
+def host_shift_routing() -> bool:
+    """Host-shift routing unless ``PTPU_HOST_SHIFT=0`` (the switch the C++
+    scanner reads too)."""
+    return os.environ.get("PTPU_HOST_SHIFT", "1") != "0"
+
+
 def resident_mode() -> bool:
     """Resident slot mode unless ``PTPU_RESIDENT=0`` (``1``, the JAX
-    package's switch to force it, is accepted and is the default here)."""
+    package's switch to force it, is accepted and is the default here), and
+    only under host-shift routing: the reverse step reads table slots, so
+    the scanner emits table slots under ``PTPU_HOST_SHIFT=0``, as in the
+    JAX package."""
     flag = os.environ.get("PTPU_RESIDENT", "")
     if flag not in ("", "0", "1"):
         raise ValueError(f"PTPU_RESIDENT must be 0 or 1, got {flag!r}")
-    return flag != "0"
+    return flag != "0" and host_shift_routing()
 
 
 def scan_and_remap_reads_native(
@@ -142,11 +168,6 @@ def scan_and_remap_reads_native(
     lib = get_lib()
     if lib is None:
         raise RuntimeError(f"ptscan unavailable: {build_error()}")
-    if os.environ.get("PTPU_HOST_SHIFT", "1") == "0":
-        raise RuntimeError(
-            "PTPU_HOST_SHIFT=0 selects the device-shift reverse chain, which "
-            "portello_tpu_torch does not port yet"
-        )
 
     from portello_tpu.io.aln_input import is_cram_file
     from portello_tpu.utils.chrom_list import ChromList
@@ -161,6 +182,11 @@ def scan_and_remap_reads_native(
     header = get_alignment_file_header(ref_chrom_list, cmdline).encode()
 
     resident = resident_mode()
+    if not host_shift_routing():
+        logger.info(
+            "Device-shift routing (PTPU_HOST_SHIFT=0): reverse-contig batches "
+            "run rev_batch; table slots"
+        )
     genome = res_goff = None
     if resident:
         # the genome goes to the device once and stays there for the run
@@ -224,30 +250,36 @@ def scan_and_remap_reads_native(
     ]
     desc = _BatchDesc()
     t_prep = t_dev = t_post = 0.0
-    n_batches = 0
-    h2d_bytes = 0
+    n_batches = n_rev = 0
+    h2d_bytes = h2d_rev = 0
     launches_before = dict(_cuda.launch_counts)
     # Up to 2 dispatched batches outstanding; post_results resolves batches
     # in emission order (the C++ side queues them FIFO).
     in_flight: collections.deque = collections.deque()
 
     def dispatch(d):
-        nonlocal h2d_bytes
-        if d.is_rev:
-            raise RuntimeError(
-                "native feed emitted a device-shift reverse batch under "
-                "host-shift routing"
-            )
+        nonlocal h2d_bytes, h2d_rev, n_rev
         bcfg = buckets[int(d.bucket)]
         # fixed shape: slots are always batch_size rows (EOF partials are
         # pre-padded by the C++ side)
-        if resident:
+        if d.is_rev:
+            if resident:
+                raise RuntimeError(
+                    "native feed emitted a reverse batch in resident slot mode"
+                )
+            args = _rev_slot_tensors(d, bcfg, batch_size, device)
+            out = rev_batch(*args, **bucket_kwargs(bcfg))
+        elif resident:
             args = _resident_slot_tensors(d, bcfg, batch_size, device, res_goff)
             out = fwd_batch_resident(*args, genome, **bucket_kwargs(bcfg))
         else:
             args = _slot_tensors(d, bcfg, batch_size, device)
             out = fwd_batch(*args, **bucket_kwargs(bcfg))
-        h2d_bytes += sum(a.nbytes for a in args)
+        nbytes = sum(a.nbytes for a in args)
+        h2d_bytes += nbytes
+        if d.is_rev:
+            n_rev += 1
+            h2d_rev += nbytes
         return out
 
     def post(out):
@@ -326,7 +358,9 @@ def scan_and_remap_reads_native(
         "fallback_items": int(stats_buf[3]),
         "n_unassembled": int(stats_buf[4]),
         "resident": resident,
+        "rev_batches": n_rev,
         "h2d_bytes_per_batch": h2d_bytes // max(n_batches, 1),
+        "h2d_bytes_per_rev_batch": h2d_rev // max(n_rev, 1),
         "kernel_launches": {
             k: v - launches_before[k] for k, v in _cuda.launch_counts.items()
         },
@@ -339,7 +373,8 @@ def scan_and_remap_reads_native(
     )
     logger.info(
         f"H2D per batch: {stats['h2d_bytes_per_batch']} bytes "
-        f"({'resident' if resident else 'table'} slots, {n_batches} batches)"
+        f"({'resident' if resident else 'table'} slots, {n_batches} batches, "
+        f"rev_batches {n_rev} of {stats['h2d_bytes_per_rev_batch']} bytes)"
     )
     if os.environ.get("PTPU_FEED_TIMING"):
         logger.info(

@@ -3,9 +3,12 @@
 Jax-free copies, for ``chip_smoke.py`` on a machine without JAX:
 
 - ``make_item_arrays``: ``portello_tpu.testutil.batchgen.make_item_arrays``
-  (that module imports jax through ``kernels.cigar_kernels``).  For the same
-  generator state it returns the same arrays as the JAX helper
-  (``tests/test_torch_fwd_step.py``).
+  (that module imports jax through ``kernels.cigar_kernels``), forward and
+  reverse (``rev=True``) batches.  For the same generator state it returns
+  the same arrays as the JAX helper (``tests/test_torch_fwd_step.py``,
+  ``tests/test_torch_rev_step.py``).
+- ``shift_win_base``: moves half of a reverse batch's items deeper into a
+  longer contig, to nonzero window bases.
 - ``resident_from_table``: turns such a table batch into resident inputs.
 - ``mixed_cigar`` and ``resident_table_pair``: the adversarial generator of
   the JAX package's resident tests (``tests/test_resident.py``): clusters at
@@ -42,12 +45,15 @@ def make_item_arrays(
     read_len: int = 18000,
     read_error: float = 0.0025,
     contig_var_rate: float = 0.0012,
+    rev: bool = False,
 ):
     """Build one batch of consistent (contig window, block map, read) items.
 
     HiFi reads map to their own sample's assembly, so read->contig cigars
     carry only sequencing error; contig->ref blocks carry variant indels.
-    Returns numpy arrays in the positional order of ``fwd_batch``.
+    Returns numpy arrays in the positional order of ``fwd_batch``, or of
+    ``rev_batch`` with ``rev`` (the contig row as ``contig_win``, at
+    ``win_base`` 0).
     """
     margin = 64
     span = read_len + 2 * margin
@@ -61,6 +67,9 @@ def make_item_arrays(
     ref_win = np.zeros((b, bcfg.max_seq), np.uint8)
     ref_base = np.zeros(b, np.int32)
     read_seq = np.zeros((b, bcfg.max_seq), np.uint8)
+    if rev:
+        contig_win = np.zeros((b, bcfg.max_seq), np.uint8)
+        win_base = np.zeros(b, np.int32)
 
     for i in range(b):
         ref_seg = rand_seq(rng, span)
@@ -87,7 +96,15 @@ def make_item_arrays(
         ref_win[i, :w] = ref_seg[:w]
         rs = min(len(rseq), bcfg.max_seq)
         read_seq[i, :rs] = rseq[:rs]
+        if rev:
+            cw = min(len(contig_seq), bcfg.max_seq)
+            contig_win[i, :cw] = contig_seq[:cw]
 
+    if rev:
+        return (
+            ops, lens, n_ops, pos, win_base, contig_win, bk, bv, nb,
+            ref_win, ref_base, read_seq,
+        )
     return ops, lens, n_ops, pos, bk, bv, nb, ref_win, ref_base, read_seq
 
 
@@ -238,3 +255,22 @@ def resident_table_pair(rng, n_items, max_ops, max_blocks, max_seq, chroms,
     res_args = (ops, lens, n_ops, pos, bk, bv, nb, g_sb, g_off, ref_base,
                 packed)
     return table_args, res_args
+
+
+def shift_win_base(rev_arrays, rng):
+    """A reverse batch of ``make_item_arrays(rev=True)`` with about half of
+    its items moved deeper into a longer contig: for such an item a random
+    prefix of 1..2^20 bases precedes its window, so
+    ``win_base`` is nonzero, ``pos`` and the block map's keys move by it,
+    and ``contig_win`` stays the same row.  Items that neither step flags
+    lift to the same output as in the base-0 batch.  Returns new arrays and
+    the (B,) bool mask of the moved items."""
+    arrays = [a.copy() for a in rev_arrays]
+    pos, win_base, bk, nb = arrays[3], arrays[4], arrays[6], arrays[8]
+    moved = rng.random(len(pos)) < 0.5
+    for i in np.flatnonzero(moved):
+        wb = int(rng.integers(1, (1 << 20) + 1))
+        win_base[i] += wb
+        pos[i] += wb
+        bk[i, : nb[i]] += wb
+    return tuple(arrays), moved

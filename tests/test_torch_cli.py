@@ -1,7 +1,9 @@
-"""PyTorch port CLI: ``python -m portello_tpu_torch.main --device cpu --feed
-native`` writes the same records as JAX's ``--device cpu --feed native`` and
-as the exact host path, in resident slot mode (the default) and on table
-slots (``PTPU_RESIDENT=0``); ``--device cuda`` without a GPU exits
+"""PyTorch port CLI: ``python -m portello_tpu_torch.main --device cpu`` writes
+the same records as JAX's ``--device cpu`` and as the exact host path: on the
+native feed in resident slot mode (the default) and on table slots
+(``PTPU_RESIDENT=0``), under device-shift routing (``PTPU_HOST_SHIFT=0``),
+and on the Python feed under both routings; ``--feed auto`` without the
+native scanner runs the Python feed; ``--device cuda`` without a GPU exits
 non-zero."""
 
 import os
@@ -10,6 +12,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from portello_tpu.pipeline import native_feed
 from portello_tpu.testutil.simulate import make_scenario
@@ -88,6 +91,124 @@ def test_port_slot_modes_equal_jax_and_host(scenario, monkeypatch, resident):
     assert len(_records(scenario / f"remapped_{tag}.bam")) > 0
 
 
+def _spy_native(monkeypatch):
+    """Record the stats of each native-feed run of the port."""
+    from portello_tpu_torch.pipeline import native_feed as port_feed
+
+    stats = []
+    run = port_feed.scan_and_remap_reads_native
+    monkeypatch.setattr(port_feed, "scan_and_remap_reads_native",
+                        lambda *a, **k: stats.append(run(*a, **k)) or stats[-1])
+    return stats
+
+
+def _spy_engines(monkeypatch):
+    """Record each DeviceEngine the port's CLI builds."""
+    from portello_tpu_torch.models import pipeline_model as tpm
+
+    engines = []
+
+    class Spy(tpm.DeviceEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            engines.append(self)
+
+    monkeypatch.setattr(tpm, "DeviceEngine", Spy)
+    return engines
+
+
+def _assert_same_records(scenario, tag, *others):
+    for kind in ("remapped", "un"):
+        port = _records(scenario / f"{kind}_{tag}.bam")
+        for other in others:
+            assert port == _records(scenario / f"{kind}_{other}.bam"), (kind, other)
+    assert len(_records(scenario / f"remapped_{tag}.bam")) > 0
+
+
+@pytest.mark.parametrize("host_shift", ["1", "0"])
+def test_port_python_feed_equals_jax_and_host(scenario, monkeypatch, host_shift):
+    """--feed python: the port's DeviceEngine under host-shift routing and
+    under device-shift routing, where reverse-contig groups run rev_batch."""
+    from portello_tpu.main import main as jax_main
+    from portello_tpu_torch.main import main as port_main
+
+    tag = f"py{host_shift}"
+    monkeypatch.setenv("PTPU_HOST_SHIFT", host_shift)
+    jax_main(_args(scenario, f"jax_{tag}", "cpu", "--feed", "python"))
+    jax_main(_args(scenario, f"host_{tag}", "host"))
+    engines = _spy_engines(monkeypatch)
+    port_main(_args(scenario, tag, "cpu", "--feed", "python"))
+    assert len(engines) == 1
+    stats = engines[0].stats
+    assert engines[0].host_shift == (host_shift == "1")
+    assert stats["device_items"] > 0 and stats["batches"] > 0
+    assert (stats["rev_batches"] > 0) == (host_shift == "0")
+    _assert_same_records(scenario, tag, f"jax_{tag}", f"host_{tag}")
+
+
+def test_port_native_device_shift_equals_jax_and_host(scenario, monkeypatch):
+    """PTPU_HOST_SHIFT=0 on the native feed: the scanner emits reverse
+    batches on table slots, and the port runs rev_batch on them."""
+    from portello_tpu.main import main as jax_main
+    from portello_tpu_torch.main import main as port_main
+
+    monkeypatch.setenv("PTPU_HOST_SHIFT", "0")
+    jax_main(_args(scenario, "jax_ds", "cpu", "--feed", "native"))
+    jax_main(_args(scenario, "host_ds", "host"))
+    stats = _spy_native(monkeypatch)
+    port_main(_args(scenario, "ds", "cpu", "--feed", "native"))
+    assert [s["resident"] for s in stats] == [False]
+    assert stats[0]["rev_batches"] > 0
+    assert stats[0]["h2d_bytes_per_rev_batch"] > stats[0]["h2d_bytes_per_batch"]
+    _assert_same_records(scenario, "ds", "jax_ds", "host_ds")
+
+
+def test_resident_with_device_shift_runs_table_slots(scenario, monkeypatch):
+    """PTPU_RESIDENT=1 with PTPU_HOST_SHIFT=0 falls back to table slots with
+    the same records, as in the JAX package."""
+    from portello_tpu.main import main as jax_main
+    from portello_tpu_torch.main import main as port_main
+
+    monkeypatch.setenv("PTPU_RESIDENT", "1")
+    monkeypatch.setenv("PTPU_HOST_SHIFT", "0")
+    jax_main(_args(scenario, "jax_rds", "cpu", "--feed", "native"))
+    jax_main(_args(scenario, "host_rds", "host"))
+    stats = _spy_native(monkeypatch)
+    port_main(_args(scenario, "rds", "cpu", "--feed", "native"))
+    assert [s["resident"] for s in stats] == [False]
+    assert stats[0]["rev_batches"] > 0
+    _assert_same_records(scenario, "rds", "jax_rds", "host_rds")
+
+
+def test_feed_auto_without_native_scanner_runs_python_feed(scenario, monkeypatch):
+    """--feed auto runs the Python feed when ptscan cannot be built, as the
+    JAX package does; it still runs the port's steps on the device."""
+    from portello_tpu.main import main as jax_main
+    from portello_tpu.pipeline import native_feed as jax_feed
+    from portello_tpu_torch.main import main as port_main
+
+    jax_main(_args(scenario, "host_auto", "host"))
+    monkeypatch.setattr(jax_feed, "get_lib", lambda: None)
+    engines = _spy_engines(monkeypatch)
+    native = _spy_native(monkeypatch)
+    port_main(_args(scenario, "auto", "cpu", "--feed", "auto"))
+    assert len(engines) == 1 and native == []
+    assert engines[0].stats["device_items"] > 0
+    assert engines[0].device == torch.device("cpu")
+    _assert_same_records(scenario, "auto", "host_auto")
+
+
+def test_feed_native_without_native_scanner_exits(scenario, monkeypatch):
+    from portello_tpu.pipeline import native_feed as jax_feed
+    from portello_tpu_torch.main import main as port_main
+
+    monkeypatch.setattr(jax_feed, "get_lib", lambda: None)
+    with pytest.raises(SystemExit) as e:
+        port_main(_args(scenario, "nolib", "cpu", "--feed", "native"))
+    assert "--feed native needs the native scanner" in str(e.value.code)
+    assert not (scenario / "remapped_nolib.bam").exists()
+
+
 def test_bad_resident_switch_is_refused(scenario, monkeypatch, capsys):
     from portello_tpu_torch.main import main as port_main
 
@@ -158,7 +279,6 @@ def test_device_cuda_without_gpu_exits_nonzero(scenario):
 @pytest.mark.parametrize(
     "extra,message",
     [
-        (("--feed", "python"), "--feed python is not yet ported"),
         (("--profile", "prof"), "--profile is not yet ported"),
         (("--local-workers", "2"), "--local-workers is not yet ported"),
     ],
@@ -169,18 +289,6 @@ def test_unported_options_are_refused(scenario, extra, message):
     with pytest.raises(SystemExit) as e:
         port_main(_args(scenario, "refused", "cpu", *extra))
     assert message in str(e.value.code)
-
-
-def test_device_shift_routing_is_refused(scenario, monkeypatch, capsys):
-    """PTPU_HOST_SHIFT=0 would make the scanner emit device-shift reverse
-    batches, which the port does not run: it exits 2 with the reason."""
-    from portello_tpu_torch.main import main as port_main
-
-    monkeypatch.setenv("PTPU_HOST_SHIFT", "0")
-    with pytest.raises(SystemExit) as e:
-        port_main(_args(scenario, "devshift", "cpu", "--feed", "native"))
-    assert e.value.code == 2
-    assert "PTPU_HOST_SHIFT=0" in capsys.readouterr().err
 
 
 def test_device_choices():
