@@ -33,7 +33,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    Python feed under host-shift and under device-shift routing.  The sorted
    SAM records of each must equal the exact host path's (``python -m
    portello_tpu.main --device host``); wall seconds, reads/s, item counts,
-   H2D bytes per batch, reverse batches, kernel launches per path.
+   H2D bytes per batch, reverse batches, kernel launches per path.  Then
+   the scale-out and profiling flags, on the native feed in resident slot
+   mode: ``--local-workers 2`` (two forked workers sharing the card),
+   two concurrent ``--num-hosts 2 --host-id h --coordinator`` processes
+   (gloo rendezvous) whose shards ``merge_bams`` joins, and ``--profile``,
+   whose Chrome trace must name kernels 1 and 3.  Each run's merged records
+   must equal the host path's, and each worker's and host's log must show
+   launches of kernels 1 and 3.
 
 Imports nothing of JAX.  The last line of stdout is the JSON device record.
 """
@@ -43,6 +50,8 @@ from __future__ import annotations
 import json
 import os
 import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -65,6 +74,10 @@ PATH_KERNELS = {
     "native_devshift": ("cleanup_and_compress", "match_run"),
     "python": ("cleanup_and_compress", "match_run"),
     "python_devshift": ("cleanup_and_compress", "match_run"),
+    # phase 5's scale-out runs, each process on resident slots
+    "workers": ("cleanup_and_compress", "window_match"),
+    "hosts": ("cleanup_and_compress", "window_match"),
+    "profile": ("cleanup_and_compress", "window_match"),
 }
 
 
@@ -783,7 +796,8 @@ def _sam_records(path):
         return sorted(rec.to_sam(r.header) for rec in r)
 
 
-def _cli(module, d, tag, device, extra=(), env_extra=None):
+def _cli_cmd(module, d, tag, device, extra=(), env_extra=None):
+    """The command line and environment of one CLI run on scenario ``d``."""
     env = dict(os.environ, PTPU_FEED_TIMING="1", **(env_extra or {}))
     env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [
@@ -794,13 +808,37 @@ def _cli(module, d, tag, device, extra=(), env_extra=None):
         "--unassembled-read-output", os.path.join(d, f"un_{tag}.bam"),
         "--ref", os.path.join(d, "ref.fa"), "--device", device, *extra,
     ]
+    return cmd, env
+
+
+def _start(cmd, env):
+    """Start a CLI as the leader of a new process group, so that ``_finish``
+    can stop the workers it forks along with it."""
+    return subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+
+
+def _finish(p, what, timeout=600):
+    """Wait for a CLI started by ``_start``, then kill whatever is left of
+    its process group; returns its stderr and requires exit code 0."""
+    try:
+        _, err = p.communicate(timeout=timeout)
+    finally:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+    require(p.returncode == 0, f"{what} exited {p.returncode}:\n{err[-3000:]}")
+    return err
+
+
+def _cli(module, d, tag, device, extra=(), env_extra=None):
     t0 = time.perf_counter()
-    p = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
-                       timeout=600)
-    wall = time.perf_counter() - t0
-    require(p.returncode == 0,
-            f"{module} --device {device} exited {p.returncode}:\n{p.stderr[-3000:]}")
-    return wall, p.stderr
+    err = _finish(_start(*_cli_cmd(module, d, tag, device, extra, env_extra)),
+                  f"{module} --device {device} ({tag})")
+    return time.perf_counter() - t0, err
 
 
 _H2D = re.compile(r"H2D per batch: (\d+) bytes \((\w+) slots, (\d+) batches, "
@@ -842,7 +880,139 @@ def _feed_line(path, feed, err):
     return text
 
 
-def phase_e2e():
+def _same_records(d, tag, want, what):
+    for kind in ("remapped", "un"):
+        got = _sam_records(os.path.join(d, f"{kind}_{tag}.bam"))
+        require(got == want[kind], f"{what} {kind} records differ from "
+                f"--device host ({len(got)} vs {len(want[kind])} records)")
+
+
+def _process_launches(errs, path, what):
+    """The launch counts that each process of a run logged, one ``kernel
+    launches`` line per process, each held to ``path``'s kernels; returns
+    their sum."""
+    found = [json.loads(m) for err in errs for m in _LAUNCHES.findall(err)]
+    require(len(found) == len(PROCESSES[path]),
+            f"{what}: {len(found)} kernel launches lines for "
+            f"{len(PROCESSES[path])} processes")
+    for name, launches in zip(PROCESSES[path], found):
+        require_launches(launches, path, f"{what}, {name}")
+    return {k: sum(f.get(k, 0) for f in found) for k in KERNELS}
+
+
+def _log_lines(err, path, keys):
+    for line in err.splitlines():
+        if any(k in line for k in keys):
+            log(f"e2e port CLI ({path}): " + line.split("] ", 1)[-1])
+
+
+def _trace_kernels(trace_path):
+    """Device kernel time (us) by kernel name in a Chrome trace of
+    ``torch.profiler``.  A name loses its argument list and the
+    ``(anonymous namespace)::`` that the hand kernels' names carry."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = e["name"].replace("(anonymous namespace)::", "")
+            name = name.split("(", 1)[0]
+            by_name[name] = by_name.get(name, 0.0) + float(e.get("dur", 0))
+    return by_name
+
+
+# The processes of each scale-out run, by name, in the order their logs are
+# read.
+PROCESSES = {
+    "workers": ("worker 0", "worker 1"),
+    "hosts": ("host 0", "host 1"),
+    "profile": ("process",),
+}
+_SCALE_LINES = ("Resident genome:", "peak device memory:", "Total Runtime:",
+                "Forking ", "Merged ", "torch.distributed initialized",
+                "output shard:")
+
+
+def phase_scale_out(d, want, threads, smi):
+    """The scale-out and profiling flags on the bench scenario, each run's
+    merged sorted records against ``--device host``'s: ``--local-workers
+    2`` (two forked workers on one card, each with its own CUDA context and
+    resident genome), two concurrent ``--num-hosts 2 --coordinator`` hosts
+    joined over gloo and merged with ``merge_bams``, and ``--profile``,
+    whose Chrome trace must name kernels 1 and 3."""
+    from portello_tpu.tools.merge import merge_bams
+    from portello_tpu_torch.parallel.distributed import shard_output_path
+
+    module = "portello_tpu_torch.main"
+    half = str(max(1, int(threads) // 2))
+    feed = ("--feed", "native")
+    runs = {}
+
+    wall, err = _cli(module, d, "workers", "cuda",
+                     (*feed, "--threads", half, "--local-workers", "2"))
+    require("Forking 2 workers" in err and "Merged 2 worker shards" in err,
+            f"e2e workers: no fork or no merge in the log:\n{err[-3000:]}")
+    require(not [f for f in os.listdir(d) if "_workers.shard" in f],
+            "e2e workers: shard files left behind")
+    runs["workers"] = _process_launches([err], "workers", "e2e workers")
+    _same_records(d, "workers", want, "e2e workers")
+    _log_lines(err, "workers", _SCALE_LINES)
+    log(f"e2e workers (--local-workers 2 --threads {half}, native feed, "
+        f"resident): merged output == --device host output; both workers "
+        f"launched compress and window_match; wall {wall:.2f} s ({smi}); "
+        f"launches {json.dumps(runs['workers'])}")
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [
+        _start(*_cli_cmd(module, d, "hosts", "cuda", (
+            *feed, "--threads", half, "--num-hosts", "2", "--host-id", str(h),
+            "--coordinator", f"127.0.0.1:{port}")))
+        for h in range(2)
+    ]
+    errs = [_finish(p, f"e2e host {h}") for h, p in enumerate(procs)]
+    wall = time.perf_counter() - t0
+    for h, err in enumerate(errs):
+        require(f"torch.distributed initialized: process {h}/2" in err,
+                f"e2e host {h}: no rendezvous line:\n{err[-3000:]}")
+        _log_lines(err, f"host {h}", _SCALE_LINES)
+    runs["hosts"] = _process_launches(errs, "hosts", "e2e hosts")
+    t1 = time.perf_counter()
+    for kind in ("remapped", "un"):
+        out = os.path.join(d, f"{kind}_hosts.bam")
+        merge_bams(out, [shard_output_path(out, h, 2) for h in range(2)])
+    merge_s = time.perf_counter() - t1
+    _same_records(d, "hosts", want, "e2e hosts")
+    log(f"e2e hosts (2 concurrent --num-hosts 2 --coordinator processes, "
+        f"--threads {half} each, gloo rendezvous): merged shards == --device "
+        f"host output; wall {wall:.2f} s for both, merge {merge_s:.2f} s "
+        f"({smi}); launches {json.dumps(runs['hosts'])}")
+
+    prof = os.path.join(d, "prof")
+    wall, err = _cli(module, d, "profile", "cuda",
+                     (*feed, "--threads", threads, "--profile", prof))
+    runs["profile"] = _process_launches([err], "profile", "e2e profile")
+    _same_records(d, "profile", want, "e2e profile")
+    trace = os.path.join(prof, "trace.json")
+    require(os.path.exists(trace), f"e2e profile: no trace at {trace}")
+    by_name = _trace_kernels(trace)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    total = sum(by_name.values())
+    log(f"e2e profile (--profile, native feed, resident): output == --device "
+        f"host output; trace {os.path.getsize(trace)} bytes; wall "
+        f"{wall:.2f} s ({smi}); device kernel time {total / 1e3:.3f} ms in "
+        f"{len(by_name)} kernel names; top 5: "
+        + "; ".join(f"{n[:100]} {us / 1e3:.3f} ms" for n, us in top))
+    for kernel in ("cleanup_and_compress_kernel", "window_runs_resident_kernel"):
+        require(kernel in by_name, f"e2e profile: the trace names no {kernel}")
+        log(f"e2e profile: the trace names {kernel}, "
+            f"{by_name[kernel] / 1e3:.4f} ms of device time in the run")
+    return runs
+
+
+def phase_e2e(smi):
     import numpy as np
 
     from portello_tpu.testutil.simulate import make_scenario
@@ -872,9 +1042,7 @@ def phase_e2e():
             feed_text = _feed_line(path, feed, err)
             launches = json.loads(lm.group(1))
             require_launches(launches, path, f"e2e {path} run")
-            for line in err.splitlines():
-                if any(k in line for k in _TIMING_LINES):
-                    log(f"e2e port CLI ({path}): " + line.split("] ", 1)[-1])
+            _log_lines(err, path, _TIMING_LINES)
             for kind in ("remapped", "un"):
                 got = _sam_records(os.path.join(d, f"{kind}_{path}.bam"))
                 require(got == want[kind], f"e2e {path} {kind} records "
@@ -889,6 +1057,7 @@ def phase_e2e():
                 f"items {dev_items}, host items {host_items}, fallbacks "
                 f"{fb_items}; {feed_text}; launches {json.dumps(launches)}")
             runs[path] = launches
+        runs.update(phase_scale_out(d, want, threads, smi))
     log(f"e2e: host-path CLI wall {host_wall:.2f} s")
     return runs
 
@@ -913,7 +1082,7 @@ def main() -> int:
         rev_arrays = hifi_batch(rng)
         kres = phase_kernels(rng, rev_arrays)
         phase_forward(rng, rev_arrays)
-        e2e = phase_e2e()
+        e2e = phase_e2e(smi_line)
         require("jax" not in sys.modules, "jax was imported")
     except Exception as e:  # every phase failure ends the run non-zero
         import traceback

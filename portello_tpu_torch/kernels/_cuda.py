@@ -128,15 +128,20 @@ def _bind(path: str):
     return lib
 
 
+def ensure_built() -> float:
+    """Build the library if it is missing or stale; returns the build
+    seconds, 0 when it was current.  It only runs nvcc: it loads nothing and
+    touches no device, so a process can build once before it forks workers
+    that will use CUDA."""
+    return build() if _stale() else 0.0
+
+
 def get_lib():
     """The bound kernel library, built first if missing or stale."""
     global _lib, build_seconds
     with _lock:
         if _lib is None:
-            if _stale():
-                build_seconds = build()
-            else:
-                build_seconds = 0.0
+            build_seconds = ensure_built()
             _lib = _bind(SO_PATH)
         return _lib
 

@@ -145,6 +145,34 @@ def resident_mode() -> bool:
     return flag != "0" and host_shift_routing()
 
 
+def _cram_fetch_plan(cram_path: str, contig_list, shard_plan):
+    """The (tid, end) ranges of a shard's owned contigs, for the CRAM
+    feeder's .crai slice seeks; None (read the whole file) for an unsharded
+    run or a CRAM without an index.
+
+    Ownership is keyed on the primary record's tid, the scanner's own test,
+    so fetching only the owned contigs is sound.  ``--target-region`` does
+    not narrow the fetch: a primary on a contig outside the region can carry
+    a supplementary alignment into it."""
+    if shard_plan is None:
+        return None
+    from portello_tpu.io.crai import CraiIndex
+
+    try:
+        CraiIndex.load(cram_path)
+    except FileNotFoundError:
+        return None
+    plan = [
+        (ci, c.length) for ci, c in enumerate(contig_list.data)
+        if shard_plan.owns(ci)
+    ]
+    logger.info(
+        "Serving this shard's CRAM reads by .crai slice seek over "
+        f"{len(plan)} owned contigs"
+    )
+    return plan
+
+
 def scan_and_remap_reads_native(
     read_to_assembly_bam: str,
     remapped_read_output: str,
@@ -159,12 +187,17 @@ def scan_and_remap_reads_native(
     buckets=None,
     thread_count: int = 1,
     cram_reference=None,
+    shard_plan=None,
 ) -> dict:
     """Native-feed phase 2 on ``device``; returns the stats dict.
 
     Raises RuntimeError when the native library is unavailable.  CRAM input
     streams directly: a producer thread decodes records and pushes
-    uncompressed BAM bytes into the scanner."""
+    uncompressed BAM bytes into the scanner.  ``shard_plan`` (a
+    ``parallel.distributed.HostShardPlan``) restricts the run to the reads
+    whose primary alignment is on the host's contigs, and the unassembled
+    reads to host 0; a CRAM input is then read by .crai slice seek over the
+    owned contigs only."""
     lib = get_lib()
     if lib is None:
         raise RuntimeError(f"ptscan unavailable: {build_error()}")
@@ -207,11 +240,16 @@ def scan_and_remap_reads_native(
     feeder_state: dict = {}
     if is_cram_file(read_to_assembly_bam):
         logger.info("Streaming CRAM input directly into the native scanner")
+        fetch_plan = _cram_fetch_plan(read_to_assembly_bam, contig_list,
+                                      shard_plan)
         push_handle = ctypes.c_void_p(lib.ptio_reader_open_push(0))
         feeder = threading.Thread(
             target=_cram_feeder,
             args=(lib, push_handle, read_to_assembly_bam, cram_reference,
                   feeder_state),
+            kwargs={"fetch_plan": fetch_plan,
+                    "include_unmapped": shard_plan is None
+                    or shard_plan.host_id == 0},
             name="cram-feeder",
             daemon=True,
         )
@@ -222,7 +260,7 @@ def scan_and_remap_reads_native(
             lib, read_to_assembly_bam, remapped_read_output,
             unassembled_read_output, header, reference, ref_chrom_list,
             contig_list, all_contig_mapping_info, buckets, batch_size,
-            is_target_region, None, thread_count,
+            is_target_region, shard_plan, thread_count,
             push_reader=push_handle, resident=resident,
         )
     except BaseException:

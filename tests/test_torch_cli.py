@@ -276,21 +276,6 @@ def test_device_cuda_without_gpu_exits_nonzero(scenario):
     assert not (scenario / "remapped_cuda.bam").exists()
 
 
-@pytest.mark.parametrize(
-    "extra,message",
-    [
-        (("--profile", "prof"), "--profile is not yet ported"),
-        (("--local-workers", "2"), "--local-workers is not yet ported"),
-    ],
-)
-def test_unported_options_are_refused(scenario, extra, message):
-    from portello_tpu_torch.main import main as port_main
-
-    with pytest.raises(SystemExit) as e:
-        port_main(_args(scenario, "refused", "cpu", *extra))
-    assert message in str(e.value.code)
-
-
 def test_device_choices():
     from portello_tpu_torch.main import build_parser
 

@@ -2,8 +2,10 @@
 
 Runs in a fresh interpreter: imports every module of the port and
 ``chip_smoke``, runs a small forward step in each slot mode, a small reverse
-step, and small CLI runs on the CPU on the native feed and on the Python
-feed under device-shift routing, then checks ``sys.modules``."""
+step, and small CLI runs on the CPU on the native feed, on the Python feed
+under device-shift routing and with ``--local-workers 2``, then checks
+``sys.modules``.  An import hook refuses jax from the start, so the forked
+workers, which inherit it, fail if they import jax."""
 
 import os
 import subprocess
@@ -15,6 +17,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROGRAM = textwrap.dedent(
     """
     import os, sys, tempfile
+
+
+    class NoJax:
+        def find_spec(self, name, path=None, target=None):
+            if name == "jax" or name.startswith("jax."):
+                raise ImportError(f"{name} imported on the port's path")
+            return None
+
+
+    sys.meta_path.insert(0, NoJax())
     import numpy as np
     import chip_smoke
     import portello_tpu_torch
@@ -27,6 +39,7 @@ PROGRAM = textwrap.dedent(
     import portello_tpu_torch.kernels.simplify_kernel
     import portello_tpu_torch.kernels.window_match
     import portello_tpu_torch.main
+    import portello_tpu_torch.parallel.distributed
     import portello_tpu_torch.pipeline.native_feed
     from portello_tpu_torch.kernels.resident import genome_tensor
     from portello_tpu_torch.models.batch import BucketConfig
@@ -57,7 +70,9 @@ PROGRAM = textwrap.dedent(
     with tempfile.TemporaryDirectory() as d:
         make_scenario(d, rng=np.random.default_rng(2), n_reads_per_contig=5,
                       read_len=300)
-        for feed, host_shift in (("native", "1"), ("python", "0")):
+        for feed, host_shift, workers in (
+            ("native", "1", "0"), ("python", "0", "0"), ("native", "1", "2")
+        ):
             os.environ["PTPU_HOST_SHIFT"] = host_shift
             portello_tpu_torch.main.main([
                 "--assembly-to-ref", d + "/asm_to_ref.bam",
@@ -65,7 +80,7 @@ PROGRAM = textwrap.dedent(
                 "--remapped-read-output", d + "/out.bam",
                 "--unassembled-read-output", d + "/un.bam",
                 "--ref", d + "/ref.fa", "--device", "cpu", "--batch-size", "16",
-                "--feed", feed,
+                "--feed", feed, "--local-workers", workers,
             ])
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     print("JAX_MODULES", leaked)
@@ -83,3 +98,5 @@ def test_port_imports_no_jax():
     )
     assert p.returncode == 0, p.stderr[-3000:]
     assert "JAX_MODULES []" in p.stdout
+    assert "Forking 2 workers" in p.stderr
+    assert "Merged 2 worker shards" in p.stderr
