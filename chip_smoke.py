@@ -31,8 +31,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    default), on table slots (``PTPU_RESIDENT=0``) and under device-shift
    routing (``PTPU_HOST_SHIFT=0``, reverse batches on table slots); the
    Python feed under host-shift and under device-shift routing.  The sorted
-   SAM records of each must equal the exact host path's (``python -m
-   portello_tpu.main --device host``); wall seconds, reads/s, item counts,
+   SAM records of each must equal the exact host path's, run both as
+   ``python -m portello_tpu.main --device host`` (the JAX package's CLI in a
+   subprocess; nothing of it is imported here) and as ``python -m
+   portello_tpu_torch.main --device host``; wall seconds, reads/s, item counts,
    H2D bytes per batch, reverse batches, kernel launches per path.  Then
    the scale-out and profiling flags, on the native feed in resident slot
    mode: ``--local-workers 2`` (two forked workers sharing the card),
@@ -64,6 +66,19 @@ GENOME_BYTES = 3_100_000_000  # GRCh38-sized resident genome (64-aligned)
 W = 48                        # the buckets' simplify window
 
 KERNELS = ("cleanup_and_compress", "match_run", "window_match")
+
+# The least time for a kernel's work: the bytes it must move (each input read
+# once, each output written once) over the H100 SXM's HBM3 rate at its full
+# 700 W (NVIDIA's data sheet).  The three kernels do a few integer operations
+# per byte, far below the card's rate, so bytes bound them all.
+HBM_BYTES_PER_S = 3.35e12
+
+# The device kernel of each wrapper, as torch.profiler names it.
+KERNEL_FUNCTIONS = {
+    "cleanup_and_compress": "cleanup_and_compress_kernel",
+    "match_run": "match_run_kernel",
+    "window_match": "window_runs_resident_kernel",
+}
 
 # The kernels each path must launch, read from the launch counts of one run;
 # it must launch no other.
@@ -114,25 +129,27 @@ def cuda_ms(fn, reps: int = 20) -> float:
 
 def call_ms(fn, reps: int = 20) -> tuple[float, str, float]:
     """Milliseconds per call of ``fn``: the device time of the kernels it
-    launches, from ``torch.profiler`` over ``reps`` calls.  Where the
-    profiler records no device kernels, the CUDA-event time per call over a
-    loop of ``reps`` calls instead (host launch overhead included).  The
-    third value is the device activities (kernels and copies) per call, 0
-    where the profiler saw none."""
+    launches, from ``torch.profiler`` over ``reps`` calls.  The profiler now
+    and then records no device activity at all; after three such tries, the
+    CUDA-event time per call over a loop of ``reps`` calls instead (host
+    launch overhead included).  The third value is the device activities
+    (kernels and copies) per call, 0 where the profiler saw none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if dev:
-        return (sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps,
-                "device", len(dev) / reps)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            return (sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps,
+                    "device", len(dev) / reps)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -141,6 +158,38 @@ def call_ms(fn, reps: int = 20) -> tuple[float, str, float]:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, "events", 0.0
+
+
+def bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def compress_bytes(b: int, k: int, max_out: int) -> int:
+    """Kernel 1: codes and lens in, codes and lens out, n_out, shift and
+    overflow."""
+    return b * k * 8 + b * max_out * 8 + b * 9
+
+
+def window_resident_bytes(b: int, c: int, n_mixed: int, w: int) -> int:
+    """Kernel 3, resident: the mask and both outputs of every pair, each
+    item's genome base, and per mixed pair its four arguments, two genome
+    windows of W bytes and two packed read windows of W / 2 bytes."""
+    return 9 * b * c + 8 * b + n_mixed * (16 + 3 * w)
+
+
+def window_table_bytes(b: int, c: int, w: int) -> int:
+    """Kernel 3, Pallas contract: both starts and both runs of every pair,
+    and its two windows of W bytes."""
+    return b * c * (16 + 2 * w)
+
+
+def match_run_bytes(limit, run, w: int) -> int:
+    """Kernel 2: both starts, the limit and the run of every pair, and the
+    bytes each side compares: the run and the mismatch that ends it, within
+    the limit clamped to the window."""
+    lim = limit.clamp(0, w).long()
+    compared = int((run.long() + 1).minimum(lim).sum())
+    return 16 * limit.numel() + 2 * compared
 
 
 def require_launches(launches: dict, path: str, where: str) -> None:
@@ -185,7 +234,7 @@ def phase_device():
 
 # ---------------------------------------------------------------- phase 2
 def phase_build():
-    from portello_tpu.pipeline.native_feed import build_error, get_lib
+    from portello_tpu_torch.pipeline.native_feed import build_error, get_lib
     from portello_tpu_torch.kernels import _cuda
 
     t0 = time.perf_counter()
@@ -256,6 +305,12 @@ def _timed(kernel, plain):
     )
 
 
+def _bound_text(nbytes: int, ms: float) -> str:
+    return (f"bound {nbytes} bytes = {bound_ms(nbytes) * 1e3:.3f} us at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, kernel at "
+            f"{bound_ms(nbytes) / ms:.1%} of it")
+
+
 def phase_kernels(rng, rev_arrays):
     import torch
 
@@ -289,10 +344,12 @@ def phase_kernels(rng, rev_arrays):
             lambda: cleanup_and_compress_plain(c, ln, max_out),
         )
         n_ovf = int(got[4].sum())
+        nbytes = compress_bytes(512, k, max_out)
         log(f"kernel cleanup_and_compress B=512 K={k} max_out={max_out}: "
-            f"equal (overflow rows {n_ovf}); {times}")
+            f"equal (overflow rows {n_ovf}); {times}; "
+            f"{_bound_text(nbytes, ms)}")
         if (k, max_out) == (352, 232):
-            results["cleanup_and_compress"] = (ms, pms)
+            results["cleanup_and_compress"] = (ms, pms, nbytes)
     results["cleanup_and_compress_err"] = err1
 
     err2 = 0
@@ -314,11 +371,13 @@ def phase_kernels(rng, rev_arrays):
                 lambda: match_run_cuda(ta, tia, tb, tib, tl, w, rev),
                 lambda: match_run_plain(ta, tia, tb, tib, tl, w, rev),
             )
+            nbytes = match_run_bytes(tl, got, w)
             log(f"kernel match_run B=512 C={c_} W={w} L={length} "
                 f"{'backward' if rev else 'forward'}: equal (mean run "
-                f"{float(got.float().mean()):.2f}); {times}")
+                f"{float(got.float().mean()):.2f}); {times}; "
+                f"{_bound_text(nbytes, ms)}")
             if (c_, rev) == (96, True):
-                results["match_run"] = (ms, pms)
+                results["match_run"] = (ms, pms, nbytes)
     results["match_run_err"] = err2
     shift = phase_shift_kernels(rng, rev_arrays)
     results["cleanup_and_compress_err"] = max(err1, shift.pop("compress_err"))
@@ -442,8 +501,9 @@ def phase_shift_kernels(rng, rev_arrays):
         log(f"kernel cleanup_and_compress stage-B stream ({label}, up to "
             f"{max_n} ops) B={b} K={k} max_out={max_out}: equal; "
             f"{n_zero} zero-length non-PAD ops, {n_tail} rows with the "
-            f"trailing flush in the partial last chunk, overflow rows "
-            f"{int(got[4].sum())}; {times}")
+            f"trailing flush in the last op, overflow rows "
+            f"{int(got[4].sum())}; {times}; "
+            f"{_bound_text(compress_bytes(b, k, max_out), ms)}")
         results[f"compress_stage_b_{label.split()[0]}"] = (k, ms, pms)
 
         cwin, end_ref, rseq, end_read, limit = homology
@@ -464,7 +524,8 @@ def phase_shift_kernels(rng, rev_arrays):
             f"{int(live.sum())} clusters, limits up to {int(limit.max())} "
             f"({int((limit > w).sum())} above the window), runs at the "
             f"window {int((got >= w).sum())}, mean run "
-            f"{float(got[live].float().mean()):.2f}; {times}")
+            f"{float(got[live].float().mean()):.2f}; {times}; "
+            f"{_bound_text(match_run_bytes(limit, got, w), ms)}")
         results[f"match_run_stage_a_{label.split()[0]}"] = (ms, pms)
     return results
 
@@ -565,13 +626,16 @@ def phase_window_match(rng):
             lambda: window_runs_resident_plain(*args, W),
         )
         mixed = args[-1]
+        n_mixed = int(mixed.sum())
+        nbytes = window_resident_bytes(512, c, n_mixed, W)
         log(f"kernel window_match resident B=512 C={c} W={W} "
             f"max_seq={max_seq} ({label}; bases {int(bases.min())}.."
-            f"{int(bases.max())} of {n}): equal; {int(mixed.sum())} mixed "
+            f"{int(bases.max())} of {n}): equal; {n_mixed} mixed "
             f"clusters, mean raw_r {float(got[0][mixed].float().mean()):.2f}, "
-            f"raw_l {float(got[1][mixed].float().mean()):.2f}; {times}")
+            f"raw_l {float(got[1][mixed].float().mean()):.2f}; {times}; "
+            f"{_bound_text(nbytes, ms)}")
         if label == "primary bucket":
-            results["window_match"] = (ms, pms)
+            results["window_match"] = (ms, pms, nbytes)
         del args, got, want
     del genome
     torch.cuda.empty_cache()
@@ -594,7 +658,8 @@ def phase_window_match(rng):
         )
         log(f"kernel window_match Pallas contract B=512 C={c} W={W} "
             f"L={length}: equal (mean run_fwd {float(got[0].float().mean()):.2f}"
-            f", run_rev {float(got[1].float().mean()):.2f}); {times}")
+            f", run_rev {float(got[1].float().mean()):.2f}); {times}; "
+            f"{_bound_text(window_table_bytes(512, c, W), ms)}")
     results["window_match_err"] = err
     return results
 
@@ -622,6 +687,33 @@ def _step_times(step, b: int, label: str):
         f"kernels and copies, busy share {dev_ms / ms:.3f} of the host-clock "
         f"step")
     return ms
+
+
+def _kernels_in_step(step, reps: int = 10) -> dict:
+    """Each hand kernel's device time per call and calls per step inside
+    ``step``, from the events ``torch.profiler`` records under the kernel's
+    name over ``reps`` steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    found = {}
+    for _ in range(3):  # the profiler now and then records no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                step()
+            torch.cuda.synchronize()
+        for name, function in KERNEL_FUNCTIONS.items():
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and function in e.name]
+            if us:
+                found[name] = (sum(us) / 1e3 / len(us), len(us) / reps)
+        if found:
+            break
+    return found
 
 
 def _equal_fields(got, want, what: str) -> None:
@@ -774,9 +866,19 @@ def phase_forward(rng, rev_arrays):
     log("steps: ms/batch (host clock) " + ", ".join(
         f"{mode} " + " / ".join(f"{t:.3f}" for t in times[mode])
         for mode in steps))
+    in_step = {}
+    for mode in ("resident", "table"):
+        in_step[mode] = _kernels_in_step(steps[mode])
+        log(f"{labels[mode]}: hand kernels inside the step (profiler "
+            f"events): " + "; ".join(
+                f"{name} {ms:.4f} ms per call, {n:.0f} calls per step"
+                for name, (ms, n) in in_step[mode].items()))
+    for name in PATH_KERNELS["resident"]:
+        require(name in in_step["resident"],
+                f"the resident step's profile names no {name} kernel")
     del genome
     torch.cuda.empty_cache()
-    return launches
+    return launches, in_step
 
 
 # ---------------------------------------------------------------- phase 5
@@ -790,7 +892,7 @@ _TIMING_LINES = ("feed timing:", "native phase split:", "Total Runtime:",
 
 
 def _sam_records(path):
-    from portello_tpu.io.bam import BamReader
+    from portello_tpu_torch.io.bam import BamReader
 
     with BamReader(path) as r:
         return sorted(rec.to_sam(r.header) for rec in r)
@@ -940,7 +1042,7 @@ def phase_scale_out(d, want, threads, smi):
     resident genome), two concurrent ``--num-hosts 2 --coordinator`` hosts
     joined over gloo and merged with ``merge_bams``, and ``--profile``,
     whose Chrome trace must name kernels 1 and 3."""
-    from portello_tpu.tools.merge import merge_bams
+    from portello_tpu_torch.tools.merge import merge_bams
     from portello_tpu_torch.parallel.distributed import shard_output_path
 
     module = "portello_tpu_torch.main"
@@ -1005,17 +1107,19 @@ def phase_scale_out(d, want, threads, smi):
         f"{wall:.2f} s ({smi}); device kernel time {total / 1e3:.3f} ms in "
         f"{len(by_name)} kernel names; top 5: "
         + "; ".join(f"{n[:100]} {us / 1e3:.3f} ms" for n, us in top))
-    for kernel in ("cleanup_and_compress_kernel", "window_runs_resident_kernel"):
-        require(kernel in by_name, f"e2e profile: the trace names no {kernel}")
+    for name in PATH_KERNELS["profile"]:
+        kernel = KERNEL_FUNCTIONS[name]
+        us = [t for n, t in by_name.items() if kernel in n]
+        require(bool(us), f"e2e profile: the trace names no {kernel}")
         log(f"e2e profile: the trace names {kernel}, "
-            f"{by_name[kernel] / 1e3:.4f} ms of device time in the run")
+            f"{sum(us) / 1e3:.4f} ms of device time in the run")
     return runs
 
 
 def phase_e2e(smi):
     import numpy as np
 
-    from portello_tpu.testutil.simulate import make_scenario
+    from portello_tpu_torch.testutil.simulate import make_scenario
 
     runs = {}
     with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as d:
@@ -1030,6 +1134,14 @@ def phase_e2e(smi):
         want = {kind: _sam_records(os.path.join(d, f"{kind}_host.bam"))
                 for kind in ("remapped", "un")}
         require(len(want["remapped"]) > 0, "e2e produced no remapped records")
+        # the port's own host path must equal the JAX package's, so every
+        # --device cuda run below equals both
+        port_host_wall, _ = _cli("portello_tpu_torch.main", d, "port_host",
+                                 "host", ("--threads", threads))
+        _same_records(d, "port_host", want, "e2e port --device host")
+        log(f"e2e: port --device host output == portello_tpu --device host "
+            f"output ({len(want['remapped'])} remapped records); walls "
+            f"{port_host_wall:.2f} s (port), {host_wall:.2f} s (portello_tpu)")
         # Each CLI runs in its own process, whose launch counts start at 0;
         # it logs the launches of its phase-2 run ("kernel launches: {...}").
         for path, feed, env in E2E_RUNS:
@@ -1081,9 +1193,11 @@ def main() -> int:
         rng = np.random.default_rng(SEED)
         rev_arrays = hifi_batch(rng)
         kres = phase_kernels(rng, rev_arrays)
-        phase_forward(rng, rev_arrays)
+        step_launches, in_step = phase_forward(rng, rev_arrays)
         e2e = phase_e2e(smi_line)
-        require("jax" not in sys.modules, "jax was imported")
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "portello_tpu")]
+        require(not leaked, f"imported {leaked[:5]}")
     except Exception as e:  # every phase failure ends the run non-zero
         import traceback
 
@@ -1092,38 +1206,35 @@ def main() -> int:
         return 1
 
     # launches: the main path's run (resident slots) for its kernels, the
-    # table-slot run for match_run; launches_by_path: every CLI run's
-    kernels = [
-        {
-            "name": "cleanup_and_compress", "route": "cuda",
-            "source": "portello_tpu_torch/csrc/compress.cu",
-            "replaces": "portello_tpu/kernels/pallas/compress_pallas.py:124",
-            "launches": e2e["resident"]["cleanup_and_compress"],
-            "max_abs_err": kres["cleanup_and_compress_err"],
-            "ms": kres["cleanup_and_compress"][0],
-            "plain_ms": kres["cleanup_and_compress"][1],
-        },
-        {
-            "name": "match_run", "route": "cuda",
-            "source": "portello_tpu_torch/csrc/match_run.cu",
-            "replaces": "portello_tpu/kernels/pallas/match_run_pallas.py:78",
-            "launches": e2e["table"]["match_run"],
-            "max_abs_err": kres["match_run_err"],
-            "ms": kres["match_run"][0],
-            "plain_ms": kres["match_run"][1],
-        },
-        {
-            "name": "window_match", "route": "cuda",
-            "source": "portello_tpu_torch/csrc/window_match.cu",
-            "replaces": "portello_tpu/kernels/pallas/window_match.py:96",
-            "launches": e2e["resident"]["window_match"],
-            "max_abs_err": kres["window_match_err"],
-            "ms": kres["window_match"][0],
-            "plain_ms": kres["window_match"][1],
-        },
-    ]
-    for k in kernels:
-        k["launches_by_path"] = {path: e2e[path][k["name"]] for path in e2e}
+    # table-slot run for match_run; launches_by_path: every CLI run's.
+    # ms/plain_ms/bytes: phase 3's main-path shape of each kernel (kernel 1 at
+    # the lift site, K=352; kernels 2 and 3 at C=96); launches_per_batch:
+    # one resident step's (the main path's: 0 for match_run); step_ms: device
+    # time per call inside the resident step (match_run: the table step).
+    specs = (
+        ("cleanup_and_compress", "compress.cu",
+         "compress_pallas.py:124", "resident"),
+        ("match_run", "match_run.cu", "match_run_pallas.py:78", "table"),
+        ("window_match", "window_match.cu", "window_match.py:96", "resident"),
+    )
+    kernels = []
+    for kernel, source, replaces, e2e_path in specs:
+        ms, plain_ms, nbytes = kres[kernel]
+        step = in_step["resident"].get(kernel) or in_step["table"].get(kernel)
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": f"portello_tpu_torch/csrc/{source}",
+            "replaces": f"portello_tpu/kernels/pallas/{replaces}",
+            "launches": e2e[e2e_path][kernel],
+            "max_abs_err": kres[f"{kernel}_err"],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": None,
+            "bytes": nbytes,
+            "launches_per_batch": step_launches["resident"][kernel],
+            "step_ms": step[0] if step else None,
+            "launches_by_path": {path: e2e[path][kernel] for path in e2e},
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

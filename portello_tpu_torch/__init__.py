@@ -10,10 +10,14 @@ JAX package so each counterpart is easy to find:
   with a plain PyTorch version beside it that runs for CPU tensors.
 - ``models``    the bucket table and the forward steps ``fwd_batch_resident``
   (resident slots, the default) and ``fwd_batch`` (table slots).
-- ``pipeline``  the native C++ feed (shared with ``portello_tpu``) driving
-  the forward step.
+- ``pipeline``  phase 1 (the contig scan) and phase 2: the native C++ feed
+  driving the device steps, and the Python feed (``read_scan``).
 - ``main``      the CLI: ``python -m portello_tpu_torch.main``.
 
-Host code without a backend (I/O, phase 1, the numpy oracle, the C++ scanner)
-is imported from ``portello_tpu``, never copied.  Nothing here imports jax.
+The package stands alone.  The host code without a backend (``io``, with
+the C++ codec and scanner in ``io/native``; the numpy oracle ``ops``;
+``utils``, ``tools``, phase 1 and the Python feed) is this package's own
+copy of the JAX package's modules, at the same relative paths and equal to
+them but for the import paths.  Nothing here imports ``portello_tpu`` or
+jax.
 """

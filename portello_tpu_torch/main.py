@@ -1,7 +1,7 @@
 """Command-line entry point of the PyTorch port: ``python -m portello_tpu_torch.main``.
 
 The same flags and exit codes as ``portello_tpu.main`` (whose parser and
-validation it reuses), except ``--device``:
+validation are copied into ``cli.py``), except ``--device``:
 
 - ``cuda`` (default): the device steps on the GPU, through the hand-written
   kernels.  With no CUDA device the run exits non-zero; it never falls back.
@@ -31,22 +31,25 @@ import os
 import sys
 import time
 
-from portello_tpu._version import PROGRAM_NAME, PROGRAM_VERSION
-from portello_tpu.cli import (
+import numpy as np
+
+from portello_tpu_torch._version import PROGRAM_NAME, PROGRAM_VERSION
+from portello_tpu_torch.cli import (
+    EX_DATAERR,
     Settings,
-    build_parser as _jax_build_parser,
+    build_parser as _base_build_parser,
     validate_and_fix_settings,
     validate_settings_data,
 )
-from portello_tpu.logger import setup_logger
-from portello_tpu.main import get_chrom_array
-from portello_tpu.pipeline.contig_scan import scan_contig_bam
-from portello_tpu.utils.chrom_list import ChromList
-from portello_tpu.utils.genome_segment import GenomeSegment
+from portello_tpu_torch.io.fasta import get_genome_ref_from_fasta
+from portello_tpu_torch.logger import setup_logger
 from portello_tpu_torch.parallel.distributed import (
     plan_host_shards,
     shard_output_path,
 )
+from portello_tpu_torch.pipeline.contig_scan import scan_contig_bam
+from portello_tpu_torch.utils.chrom_list import ChromList
+from portello_tpu_torch.utils.genome_segment import GenomeSegment
 
 DEVICES = ("cuda", "cpu", "host")
 
@@ -61,9 +64,38 @@ _HELP = {
 }
 
 
+def get_chrom_array(ref_filename: str, ref_chrom_list: ChromList, logger) -> list[np.ndarray]:
+    """Reference FASTA as an array ordered by ref chrom index, with name/length
+    consistency checks (main.rs:24-62; exit DATAERR on mismatch)."""
+    genome = get_genome_ref_from_fasta(ref_filename)
+    out = []
+    error = False
+    for info in ref_chrom_list.data:
+        seq = genome.chroms.pop(info.label, None)
+        if seq is None:
+            logger.error(
+                f'Chromosome "{info.label}" specified in the assembly-to-ref '
+                "alignment file, but not in the reference fasta"
+            )
+            error = True
+        elif len(seq) != info.length:
+            logger.error(
+                f'Chromosome "{info.label}" specified with inconsistent length: '
+                f"{info.length} in the assembly-to-ref alignment file, and "
+                f"{len(seq)} in the reference fasta"
+            )
+            error = True
+        else:
+            out.append(seq)
+    if error:
+        logger.error("Exiting due to one or more reference consistency issues")
+        sys.exit(EX_DATAERR)
+    return out
+
+
 def build_parser():
-    """portello_tpu's parser with the port's ``--device`` choices."""
-    p = _jax_build_parser()
+    """The parser of ``cli.py`` with the port's ``--device`` choices."""
+    p = _base_build_parser()
     for action in p._actions:
         if action.dest == "device":
             action.choices = list(DEVICES)
@@ -185,7 +217,7 @@ def _lift(settings: Settings, preloaded_reference, cmdline: str, logger) -> None
     device = select_device(settings)
     use_native_feed = False
     if device is not None:
-        from portello_tpu.pipeline.native_feed import build_error, get_lib
+        from portello_tpu_torch.pipeline.native_feed import build_error, get_lib
 
         if settings.feed in ("auto", "native"):
             if get_lib() is not None:
@@ -215,7 +247,7 @@ def _lift(settings: Settings, preloaded_reference, cmdline: str, logger) -> None
         else get_chrom_array(settings.ref_filename, ref_chrom_list, logger)
     )
 
-    from portello_tpu.pipeline.contig_scan import (
+    from portello_tpu_torch.pipeline.contig_scan import (
         load_contig_index,
         save_contig_index,
     )
@@ -267,7 +299,7 @@ def _lift(settings: Settings, preloaded_reference, cmdline: str, logger) -> None
 
     with _profiled(settings, device, logger):
         if device is None or not use_native_feed:
-            from portello_tpu.pipeline.read_scan import scan_and_remap_reads
+            from portello_tpu_torch.pipeline.read_scan import scan_and_remap_reads
 
             engine = None
             if device is not None:
@@ -301,7 +333,7 @@ def _lift(settings: Settings, preloaded_reference, cmdline: str, logger) -> None
                     f"kernel launches: {json.dumps(stats['kernel_launches'])}"
                 )
         else:
-            from portello_tpu.io.aln_input import is_cram_file
+            from portello_tpu_torch.io.aln_input import is_cram_file
             from portello_tpu_torch.pipeline.native_feed import (
                 scan_and_remap_reads_native,
             )
@@ -430,8 +462,8 @@ def run_local_workers(settings: Settings, argv: list[str]) -> None:
     import subprocess
     import tempfile
 
-    from portello_tpu.io.aln_input import is_cram_file
-    from portello_tpu.tools.merge import merge_bams
+    from portello_tpu_torch.io.aln_input import is_cram_file
+    from portello_tpu_torch.tools.merge import merge_bams
 
     logger = setup_logger()
     n = settings.local_workers
@@ -455,7 +487,7 @@ def run_local_workers(settings: Settings, argv: list[str]) -> None:
         if settings.contig_index is None or not os.path.exists(
             settings.contig_index
         ):
-            from portello_tpu.pipeline.contig_scan import save_contig_index
+            from portello_tpu_torch.pipeline.contig_scan import save_contig_index
 
             ref_cl = ChromList.from_bam_filename(settings.assembly_to_ref_bam)
             asm_cl = ChromList.from_bam_filename(settings.read_to_assembly_bam)

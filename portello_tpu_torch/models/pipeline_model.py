@@ -26,16 +26,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from portello_tpu.ops import cigar as cg
-from portello_tpu.ops.blockmap import NONE
-from portello_tpu.ops.seq import rev_comp
-from portello_tpu.pipeline.read_scan import (
-    finish_lifted_record,
-    finish_remapped_alignment_set,
-    get_contig_split_segments_from_read_mapping,
-    get_liftover_alignment_for_read_and_contig_segment,
-)
-from portello_tpu.pipeline.split_read import get_seq_order_read_split_segments
 from portello_tpu_torch.kernels import _cuda
 from portello_tpu_torch.kernels.cigar_kernels import (
     INT32_MAX,
@@ -51,6 +41,16 @@ from portello_tpu_torch.kernels.simplify_kernel import (
     simplify_batch_resident,
 )
 from portello_tpu_torch.models.batch import BucketConfig
+from portello_tpu_torch.ops import cigar as cg
+from portello_tpu_torch.ops.blockmap import NONE
+from portello_tpu_torch.ops.seq import rev_comp
+from portello_tpu_torch.pipeline.read_scan import (
+    finish_lifted_record,
+    finish_remapped_alignment_set,
+    get_contig_split_segments_from_read_mapping,
+    get_liftover_alignment_for_read_and_contig_segment,
+)
+from portello_tpu_torch.pipeline.split_read import get_seq_order_read_split_segments
 
 DEFAULT_BUCKETS = (
     # Tight HiFi primary bucket (p99 of the 18-24 kb profile), a mid spill
@@ -372,7 +372,7 @@ class DeviceEngine:
             if self.host_shift:
                 # Host-shift routing (default): run the exact oracle shift
                 # here and dispatch the item through the forward step.
-                from portello_tpu.ops.shift import left_shift_indels
+                from portello_tpu_torch.ops.shift import left_shift_indels
 
                 read_seq = rev_comp(record.seq) if need_flip else record.seq
                 pos, cigar = left_shift_indels(

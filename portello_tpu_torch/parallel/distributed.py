@@ -2,8 +2,8 @@
 
 The liftover distributes by input sharding: each host owns a disjoint subset
 of assembly contigs, lifts only the reads whose primary alignment starts on
-them, and writes its own unsorted output shard; ``portello_tpu.tools.merge``
-joins the shards.  ``HostShardPlan``, ``plan_host_shards`` and
+them, and writes its own unsorted output shard; ``tools.merge`` joins
+the shards.  ``HostShardPlan``, ``plan_host_shards`` and
 ``shard_output_path`` are copies of ``portello_tpu.parallel.distributed``'s
 (importing that module imports ``portello_tpu.parallel``, which imports jax);
 the tests hold them equal.
@@ -34,7 +34,7 @@ def init_distributed(
         return False
     import torch.distributed as dist
 
-    from portello_tpu.logger import setup_logger
+    from portello_tpu_torch.logger import setup_logger
 
     dist.init_process_group(
         "gloo",

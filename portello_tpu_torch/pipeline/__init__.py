@@ -1,1 +1,2 @@
-"""Phase 2 on the native C++ feed (phase 1 is shared with portello_tpu)."""
+"""Phase 1 (the contig scan) and phase 2 (the native C++ feed and the Python
+feed) of the port."""

@@ -1,8 +1,11 @@
 """Native phase-2 feed: the C++ read scanner (``ptscan.cc``) driving the
 PyTorch device steps.
 
-The scanner, its ctypes layer and the CRAM feeder are shared with
-``portello_tpu.pipeline.native_feed``; only the dispatch loop is ported:
+The scanner's ctypes layer and the CRAM feeder are copied from the JAX
+package's ``pipeline/native_feed.py`` (everything above the dispatch loop);
+the scanner builds with g++ from this package's own ``io/native/ptscan.cc``
+(with ``ptio.cc`` and ``ptcore.cc``) into ``_build/native/`` at first use.
+The dispatch loop is the port's:
 
     while ptscan_next_batch(h, desc):    # C++ scans + preps one full batch
         out = step(desc -> device)       # one device step (fixed shapes)
@@ -34,25 +37,13 @@ import collections
 import ctypes
 import logging
 import os
+import subprocess
 import threading
 import time
 
 import numpy as np
 import torch
 
-from portello_tpu.pipeline.native_feed import (
-    _as_np,
-    _BatchDesc,
-    _cram_feeder,
-    _FeederAborted,
-    build_error,
-    create_scanner,
-    get_lib,
-    i32p,
-    i64p,
-    u8p,
-)
-from portello_tpu.pipeline.read_scan import get_alignment_file_header
 from portello_tpu_torch.kernels import _cuda
 from portello_tpu_torch.kernels.resident import (
     build_global_ref,
@@ -66,8 +57,411 @@ from portello_tpu_torch.models.pipeline_model import (
     fwd_batch_resident,
     rev_batch,
 )
+from portello_tpu_torch.pipeline.read_scan import get_alignment_file_header
 
 logger = logging.getLogger("portello-tpu")
+
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "..", "io", "native", "ptscan.cc")
+_SO = os.path.join(_HERE, "..", "_build", "native", "ptscan.so")
+
+_lib = None
+_lib_lock = threading.Lock()
+_build_error: str | None = None
+
+
+class _BatchDesc(ctypes.Structure):
+    _fields_ = [
+        ("bucket", ctypes.c_longlong),
+        ("is_rev", ctypes.c_longlong),
+        ("count", ctypes.c_longlong),
+        ("ops", ctypes.POINTER(ctypes.c_int32)),
+        ("lens", ctypes.POINTER(ctypes.c_int32)),
+        ("n_ops", ctypes.POINTER(ctypes.c_int32)),
+        ("pos", ctypes.POINTER(ctypes.c_int32)),
+        ("bk", ctypes.POINTER(ctypes.c_int32)),
+        ("bv", ctypes.POINTER(ctypes.c_int32)),
+        ("nb", ctypes.POINTER(ctypes.c_int32)),
+        ("ref_win", ctypes.POINTER(ctypes.c_uint8)),
+        ("ref_base", ctypes.POINTER(ctypes.c_int32)),
+        ("read_seq", ctypes.POINTER(ctypes.c_uint8)),
+        ("contig_win", ctypes.POINTER(ctypes.c_uint8)),
+        ("win_base", ctypes.POINTER(ctypes.c_int32)),
+        # resident slot mode only (null otherwise)
+        ("read_packed", ctypes.POINTER(ctypes.c_uint8)),
+        ("ref_chrom", ctypes.POINTER(ctypes.c_int32)),
+    ]
+
+
+class _P1Out(ctypes.Structure):
+    """Flattened phase-1 walk results (ptscan.cc PtscanP1Out)."""
+
+    _fields_ = [
+        ("n_rec", ctypes.c_longlong),
+        ("rec", ctypes.POINTER(ctypes.c_int64)),
+        ("n_seg", ctypes.c_longlong),
+        ("seg", ctypes.POINTER(ctypes.c_int64)),
+        ("cig", ctypes.POINTER(ctypes.c_int64)),
+        ("n_cig", ctypes.c_longlong),
+        ("bmk", ctypes.POINTER(ctypes.c_int64)),
+        ("bmv", ctypes.POINTER(ctypes.c_int64)),
+        ("n_bm", ctypes.c_longlong),
+        ("rev", ctypes.POINTER(ctypes.c_uint8)),
+        ("n_rev", ctypes.c_longlong),
+        ("qname", ctypes.POINTER(ctypes.c_uint8)),
+        ("n_qname", ctypes.c_longlong),
+    ]
+
+
+def i64p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def i32p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def u8p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _build() -> str | None:
+    os.makedirs(os.path.dirname(_SO), exist_ok=True)
+    # compile into a per-pid temp and publish atomically: concurrent
+    # processes racing on a stale .so must never dlopen a half-written
+    # library (os.replace is atomic on POSIX)
+    tmp_so = f"{_SO}.tmp{os.getpid()}"
+    base = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC, "-o", tmp_so]
+    # libdeflate (the codec htslib links for BGZF) when present; zlib-only
+    # fallback otherwise
+    proc = subprocess.run(
+        base + ["-lz", "-ldeflate", "-lpthread"], capture_output=True, text=True
+    )
+    if proc.returncode != 0:
+        proc = subprocess.run(
+            base + ["-DPTIO_NO_LIBDEFLATE", "-lz", "-lpthread"],
+            capture_output=True, text=True,
+        )
+    if proc.returncode != 0:
+        if os.path.exists(tmp_so):
+            os.remove(tmp_so)
+        return proc.stderr[-2000:]
+    os.replace(tmp_so, _SO)
+    return None
+
+
+def bind_lib(so_path: str):
+    """Load a prebuilt ptscan shared object and set its prototypes (no
+    rebuild — e.g. a sanitizer-instrumented build; scripts/tsan_native.py)."""
+    lib = ctypes.CDLL(so_path)
+    lib.ptscan_create.restype = ctypes.c_void_p
+    lib.ptscan_next_batch.restype = ctypes.c_int
+    lib.ptscan_next_batch.argtypes = [ctypes.c_void_p, ctypes.POINTER(_BatchDesc)]
+    lib.ptscan_post_results.restype = ctypes.c_int
+    lib.ptscan_error.restype = ctypes.c_char_p
+    lib.ptscan_error.argtypes = [ctypes.c_void_p]
+    lib.ptscan_finish.restype = ctypes.c_int
+    lib.ptscan_finish.argtypes = [ctypes.c_void_p]
+    lib.ptscan_stats.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
+    lib.ptscan_destroy.argtypes = [ctypes.c_void_p]
+    # push-mode reader (direct CRAM streaming)
+    lib.ptio_reader_open_push.restype = ctypes.c_void_p
+    lib.ptio_reader_open_push.argtypes = [ctypes.c_longlong]
+    lib.ptio_reader_push.restype = ctypes.c_int
+    lib.ptio_reader_push.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_longlong
+    ]
+    lib.ptio_reader_push_eof.argtypes = [ctypes.c_void_p]
+    lib.ptio_reader_push_close.argtypes = [ctypes.c_void_p]
+    lib.ptio_reader_close.argtypes = [ctypes.c_void_p]
+    # phase-1 per-record walk (contig_scan native path)
+    lib.ptscan_p1_create.restype = ctypes.c_void_p
+    lib.ptscan_p1_create.argtypes = [
+        ctypes.c_longlong, ctypes.c_char_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int,
+    ]
+    lib.ptscan_p1_process.restype = ctypes.c_int
+    lib.ptscan_p1_process.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_longlong,
+    ]
+    lib.ptscan_p1_results.argtypes = [ctypes.c_void_p, ctypes.POINTER(_P1Out)]
+    lib.ptscan_p1_error.restype = ctypes.c_char_p
+    lib.ptscan_p1_error.argtypes = [ctypes.c_void_p]
+    lib.ptscan_p1_destroy.argtypes = [ctypes.c_void_p]
+    # seq nibble codec debug surface (tests/test_simd_codecs.py)
+    lib.ptscan_dbg_seqcodec.restype = None
+    lib.ptscan_dbg_seqcodec.argtypes = [
+        ctypes.c_int,
+        np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS"),
+        ctypes.c_longlong,
+        np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS"),
+    ]
+    return lib
+
+
+def get_lib():
+    global _lib, _build_error
+    with _lib_lock:
+        if _lib is not None or _build_error is not None:
+            return _lib
+        # sanitizer runs: bind a prebuilt instrumented library for the WHOLE
+        # process (incl. pytest), bypassing the staleness rebuild that would
+        # silently swap in an uninstrumented build
+        override = os.environ.get("PTPU_PTSCAN_SO")
+        if override:
+            _lib = bind_lib(override)
+            return _lib
+        deps = [_SRC,
+                os.path.join(os.path.dirname(_SRC), "ptio.cc"),
+                os.path.join(os.path.dirname(_SRC), "ptcore.cc")]
+        if not os.path.exists(_SO) or any(
+            os.path.getmtime(d) > os.path.getmtime(_SO) for d in deps
+        ):
+            err = _build()
+            if err is not None:
+                _build_error = err
+                return None
+        _lib = bind_lib(_SO)
+        return _lib
+
+
+def build_error() -> str | None:
+    return _build_error
+
+
+def _flat_index(contig_list, all_info):
+    """Flatten the phase-1 contig index into the ptscan struct-of-arrays."""
+    n = len(contig_list.data)
+    contig_len = np.array([c.length for c in contig_list.data], np.int64)
+    names = [c.label for c in contig_list.data]
+    name_cat = "".join(names).encode()
+    name_off = np.zeros(n + 1, np.int64)
+    np.cumsum([len(x) for x in names], out=name_off[1:])
+
+    seg_off = np.zeros(n + 1, np.int64)
+    seg_chrom, seg_pos, seg_fwd, seg_mapq = [], [], [], []
+    so_start, so_end = [], []
+    bm_lens = []
+    bm_keys_parts, bm_vals_parts = [], []
+    rc_off = np.zeros(n + 1, np.int64)
+    rc_parts = []
+    for ci in range(n):
+        info = all_info[ci]
+        segs = info.ordered_contig_segment_info
+        seg_off[ci + 1] = seg_off[ci] + len(segs)
+        for si in segs:
+            seg = si.seq_order_segment
+            seg_chrom.append(seg.chrom_index)
+            seg_pos.append(seg.pos)
+            seg_fwd.append(1 if seg.is_fwd_strand else 0)
+            seg_mapq.append(seg.mapq)
+            so_start.append(seg.seq_order_read_start)
+            so_end.append(seg.seq_order_read_end)
+            bm = si.contig_to_ref_map
+            bm_lens.append(len(bm))
+            bm_keys_parts.append(np.asarray(bm.keys, np.int64))
+            bm_vals_parts.append(np.asarray(bm.vals, np.int64))
+        rc = info.rev_contig_seq
+        rc_parts.append(
+            np.asarray(rc, np.uint8) if rc is not None else np.zeros(0, np.uint8)
+        )
+        rc_off[ci + 1] = rc_off[ci] + len(rc_parts[-1])
+
+    s_total = int(seg_off[-1])
+    bm_off = np.zeros(s_total + 1, np.int64)
+    np.cumsum(bm_lens, out=bm_off[1:])
+    return {
+        "n": n,
+        "contig_len": contig_len,
+        "name_cat": name_cat,
+        "name_off": name_off,
+        "seg_off": seg_off,
+        "seg_chrom": np.array(seg_chrom, np.int32),
+        "seg_pos": np.array(seg_pos, np.int64),
+        "seg_fwd": np.array(seg_fwd, np.uint8),
+        "seg_mapq": np.array(seg_mapq, np.int32),
+        "so_start": np.array(so_start, np.int64),
+        "so_end": np.array(so_end, np.int64),
+        "bm_off": bm_off,
+        "bm_keys": (
+            np.concatenate(bm_keys_parts) if bm_keys_parts else np.zeros(0, np.int64)
+        ),
+        "bm_vals": (
+            np.concatenate(bm_vals_parts) if bm_vals_parts else np.zeros(0, np.int64)
+        ),
+        "rc_off": rc_off,
+        "rc_bytes": (
+            np.concatenate(rc_parts) if rc_parts else np.zeros(0, np.uint8)
+        ),
+    }
+
+
+def create_scanner(
+    lib,
+    read_bam: str,
+    remapped_out: str,
+    unassembled_out: str,
+    header: bytes,
+    reference,
+    ref_chrom_list,
+    contig_list,
+    all_contig_mapping_info,
+    buckets,
+    batch_size: int,
+    is_target_region: bool,
+    shard_plan,
+    thread_count: int,
+    push_reader=None,
+    resident: bool = False,
+):
+    """Marshal the phase-1 index + config and call ``ptscan_create``.
+
+    The single owner of the 36-positional-argument ABI (also used by the
+    jax-free TSAN harness, scripts/tsan_native.py).  Returns ``(handle,
+    keepalive)`` — the C++ scanner keeps RAW POINTERS into the index and
+    reference arrays, so the caller must hold ``keepalive`` (and the
+    ``reference`` list) alive until ``ptscan_destroy``.
+
+    ``resident``: emit resident-mode slots (packed read rows + ref chrom
+    index; no ref_win/read_seq tables) — kernels/resident.py.  The C++ side
+    additionally requires host-shift routing and silently falls back to
+    table slots under PTPU_HOST_SHIFT=0; the feed mirrors that condition.
+    """
+    idx = _flat_index(contig_list, all_contig_mapping_info)
+
+    ref_names = [c.label for c in ref_chrom_list.data]
+    ref_name_cat = "".join(ref_names).encode()
+    ref_name_off = np.zeros(len(ref_names) + 1, np.int64)
+    np.cumsum([len(x) for x in ref_names], out=ref_name_off[1:])
+    ref_arrays = [np.ascontiguousarray(r, dtype=np.uint8) for r in reference]
+    ref_ptrs = (ctypes.c_void_p * len(ref_arrays))(
+        *[r.ctypes.data_as(ctypes.c_void_p).value for r in ref_arrays]
+    )
+    ref_lens = np.array([len(r) for r in ref_arrays], np.int64)
+
+    bucket_dims = np.array(
+        [
+            [b.max_ops, b.max_blocks, b.max_seq, b.resolved_max_rows()]
+            for b in buckets
+        ],
+        np.int64,
+    ).ravel()
+
+    owned = None
+    owned_ptr = None
+    emit_unmapped = 1
+    if shard_plan is not None:
+        owned = np.array(
+            [1 if shard_plan.owns(t) else 0 for t in range(len(contig_list.data))],
+            np.uint8,
+        )
+        owned_ptr = owned.ctypes.data_as(ctypes.c_void_p)
+        emit_unmapped = 1 if shard_plan.host_id == 0 else 0
+
+    # Deflate is the dominant host cost at long read lengths (round-3
+    # profile: ~2/3 of host feed time), so the BGZF pool gets the full
+    # thread budget — the pool threads park when idle, and prep/fill are
+    # bursty.  (The reference gives htslib threads/2; this is a deliberate
+    # rebalance, not parity.)
+    writer_threads = max(1, thread_count)
+    level = 0 if remapped_out == "-" else 6
+
+
+    lib.ptscan_create.argtypes = []  # bypass strict typing; pass explicit ctypes
+    h = lib.ptscan_create(
+        read_bam.encode(), remapped_out.encode(),
+        unassembled_out.encode(),
+        ctypes.cast(ctypes.c_char_p(header), ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.c_longlong(len(header)),
+        ctypes.c_int(level), ctypes.c_int(writer_threads),
+        ctypes.c_longlong(idx["n"]), i64p(idx["contig_len"]),
+        ctypes.c_char_p(idx["name_cat"]), i64p(idx["name_off"]),
+        ctypes.c_longlong(len(ref_names)), ctypes.c_char_p(ref_name_cat),
+        i64p(ref_name_off), ref_ptrs, i64p(ref_lens),
+        i64p(idx["seg_off"]), i32p(idx["seg_chrom"]), i64p(idx["seg_pos"]),
+        u8p(idx["seg_fwd"]), i32p(idx["seg_mapq"]), i64p(idx["so_start"]),
+        i64p(idx["so_end"]), i64p(idx["bm_off"]), i64p(idx["bm_keys"]),
+        i64p(idx["bm_vals"]), i64p(idx["rc_off"]), u8p(idx["rc_bytes"]),
+        ctypes.c_longlong(len(buckets)), i64p(bucket_dims),
+        ctypes.c_longlong(batch_size), ctypes.c_int(1 if is_target_region else 0),
+        owned_ptr if owned_ptr is not None else ctypes.c_void_p(None),
+        ctypes.c_int(emit_unmapped), ctypes.c_int(max(1, thread_count)),
+        push_reader if push_reader is not None else ctypes.c_void_p(None),
+        ctypes.c_int(1 if resident else 0),
+    )
+    h = ctypes.c_void_p(h)
+    if not h:
+        raise RuntimeError("ptscan_create failed")
+    keepalive = (idx, header, ref_name_cat, ref_name_off, ref_arrays,
+                 ref_ptrs, ref_lens, bucket_dims, owned)
+    return h, keepalive
+
+
+def _as_np(ptr, shape, dtype):
+    return np.ctypeslib.as_array(
+        ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8)),
+        shape=(int(np.prod(shape)) * np.dtype(dtype).itemsize,),
+    ).view(dtype).reshape(shape)
+
+
+class _FeederAborted(RuntimeError):
+    """The consumer closed the push stream under the producer (the scanner
+    hit its own error first; that error is the one to surface)."""
+
+
+def _cram_feeder(lib, push_handle, cram_path, reference, state,
+                 chunk_bytes=1 << 20, fetch_plan=None,
+                 include_unmapped=True):
+    """Producer thread: decode CRAM records and push uncompressed BAM bytes
+    into the native scanner (direct streaming — replaces the temp-BAM
+    transcode; the reference streams CRAM through htslib,
+    read_alignment_scanner.rs:382-394).
+
+    ``fetch_plan``: optional list of (tid, end) contig ranges — used for
+    contig-shard (multi-process) runs, where this process lifts only reads
+    whose primary alignment is on an owned contig: the feeder then serves
+    those contigs by .crai slice seek (plus, when ``include_unmapped``, the
+    unmapped section), touching only the indexed containers and decoding
+    each shared multi-reference container at most once (fetch_many)."""
+    import struct as _struct
+
+    from portello_tpu_torch.io.cram import CramReader
+
+    try:
+        buf = bytearray()
+
+        def flush():
+            if not buf:
+                return
+            data = bytes(buf)
+            if lib.ptio_reader_push(push_handle, data, len(data)) != 0:
+                raise _FeederAborted("push stream closed by consumer")
+            buf.clear()
+
+        with CramReader(cram_path, reference=reference) as r:
+            buf += r.header.encode()
+            if fetch_plan is not None:
+                def _records():
+                    yield from r.fetch_many(fetch_plan)
+                    if include_unmapped:
+                        yield from r.fetch_unmapped()
+
+                source = _records()
+            else:
+                source = r
+            for rec in source:
+                blob = rec.encode()
+                buf += _struct.pack("<i", len(blob)) + blob
+                if len(buf) >= chunk_bytes:
+                    flush()
+            flush()
+        lib.ptio_reader_push_eof(push_handle)
+    except BaseException as e:  # noqa: BLE001 — surfaced by the main thread
+        state["exc"] = e
+        # no EOF: a clean EOF at a record boundary would silently truncate;
+        # close instead so the scanner stops and the main thread re-raises
+        lib.ptio_reader_push_close(push_handle)
 
 
 def _grab(ptr, bs: int, cols: int, dtype=np.int32) -> np.ndarray:
@@ -156,7 +550,7 @@ def _cram_fetch_plan(cram_path: str, contig_list, shard_plan):
     a supplementary alignment into it."""
     if shard_plan is None:
         return None
-    from portello_tpu.io.crai import CraiIndex
+    from portello_tpu_torch.io.crai import CraiIndex
 
     try:
         CraiIndex.load(cram_path)
@@ -202,9 +596,9 @@ def scan_and_remap_reads_native(
     if lib is None:
         raise RuntimeError(f"ptscan unavailable: {build_error()}")
 
-    from portello_tpu.io.aln_input import is_cram_file
-    from portello_tpu.utils.chrom_list import ChromList
-    from portello_tpu.utils.progress import ProgressReporter
+    from portello_tpu_torch.io.aln_input import is_cram_file
+    from portello_tpu_torch.utils.chrom_list import ChromList
+    from portello_tpu_torch.utils.progress import ProgressReporter
 
     logger.info(
         f"Processing read-to-contig alignment file '{read_to_assembly_bam}' "

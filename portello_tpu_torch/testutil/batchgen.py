@@ -20,9 +20,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from portello_tpu.ops import cigar as cg
-from portello_tpu.ops.blockmap import build_block_map
-from portello_tpu.testutil.simulate import apply_edits, rand_seq
 from portello_tpu_torch.kernels.cigar_kernels import INT32_MAX, PAD
 from portello_tpu_torch.kernels.resident import (
     SB,
@@ -31,6 +28,9 @@ from portello_tpu_torch.kernels.resident import (
     split_global_base,
 )
 from portello_tpu_torch.models.batch import BucketConfig
+from portello_tpu_torch.ops import cigar as cg
+from portello_tpu_torch.ops.blockmap import build_block_map
+from portello_tpu_torch.testutil.simulate import apply_edits, rand_seq
 
 #: Primary bucket for 18-24 kb HiFi reads (``DEFAULT_BUCKETS[0]``).
 HIFI_BUCKET = BucketConfig(

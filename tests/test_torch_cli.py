@@ -184,11 +184,11 @@ def test_feed_auto_without_native_scanner_runs_python_feed(scenario, monkeypatch
     """--feed auto runs the Python feed when ptscan cannot be built, as the
     JAX package does; it still runs the port's steps on the device."""
     from portello_tpu.main import main as jax_main
-    from portello_tpu.pipeline import native_feed as jax_feed
     from portello_tpu_torch.main import main as port_main
+    from portello_tpu_torch.pipeline import native_feed as port_feed
 
     jax_main(_args(scenario, "host_auto", "host"))
-    monkeypatch.setattr(jax_feed, "get_lib", lambda: None)
+    monkeypatch.setattr(port_feed, "get_lib", lambda: None)
     engines = _spy_engines(monkeypatch)
     native = _spy_native(monkeypatch)
     port_main(_args(scenario, "auto", "cpu", "--feed", "auto"))
@@ -199,10 +199,10 @@ def test_feed_auto_without_native_scanner_runs_python_feed(scenario, monkeypatch
 
 
 def test_feed_native_without_native_scanner_exits(scenario, monkeypatch):
-    from portello_tpu.pipeline import native_feed as jax_feed
     from portello_tpu_torch.main import main as port_main
+    from portello_tpu_torch.pipeline import native_feed as port_feed
 
-    monkeypatch.setattr(jax_feed, "get_lib", lambda: None)
+    monkeypatch.setattr(port_feed, "get_lib", lambda: None)
     with pytest.raises(SystemExit) as e:
         port_main(_args(scenario, "nolib", "cpu", "--feed", "native"))
     assert "--feed native needs the native scanner" in str(e.value.code)
@@ -231,7 +231,7 @@ def test_port_host_device_equals_host_path(scenario):
 
 
 def test_port_streams_cram_input(scenario, tmp_path):
-    """A CRAM read input streams into the native scanner through the shared
+    """A CRAM read input streams into the native scanner through the port's
     feeder thread: the same records as JAX's native feed on that CRAM, and
     the same remapped records as the BAM (the CRAM round trip rewrites the
     MAPQ of unmapped pass-through records)."""

@@ -1,11 +1,13 @@
-"""The PyTorch port never imports jax: the machine with the GPU has none.
+"""The PyTorch port never imports jax (the machine with the GPU has none)
+nor the JAX package ``portello_tpu``: it stands alone.
 
 Runs in a fresh interpreter: imports every module of the port and
 ``chip_smoke``, runs a small forward step in each slot mode, a small reverse
 step, and small CLI runs on the CPU on the native feed, on the Python feed
 under device-shift routing and with ``--local-workers 2``, then checks
-``sys.modules``.  An import hook refuses jax from the start, so the forked
-workers, which inherit it, fail if they import jax."""
+``sys.modules``.  An import hook refuses jax and ``portello_tpu`` from the
+start, so the forked workers, which inherit it, fail if they import
+either."""
 
 import os
 import subprocess
@@ -21,7 +23,8 @@ PROGRAM = textwrap.dedent(
 
     class NoJax:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith("jax."):
+            if name in ("jax", "portello_tpu") or name.startswith(
+                    ("jax.", "portello_tpu.")):
                 raise ImportError(f"{name} imported on the port's path")
             return None
 
@@ -29,18 +32,13 @@ PROGRAM = textwrap.dedent(
     sys.meta_path.insert(0, NoJax())
     import numpy as np
     import chip_smoke
+    import importlib
+    import pkgutil
+
     import portello_tpu_torch
-    import portello_tpu_torch.kernels._cuda
-    import portello_tpu_torch.kernels.cigar_kernels
-    import portello_tpu_torch.kernels.cluster_utils
-    import portello_tpu_torch.kernels.liftover_parallel
-    import portello_tpu_torch.kernels.resident
-    import portello_tpu_torch.kernels.shift_kernel
-    import portello_tpu_torch.kernels.simplify_kernel
-    import portello_tpu_torch.kernels.window_match
-    import portello_tpu_torch.main
-    import portello_tpu_torch.parallel.distributed
-    import portello_tpu_torch.pipeline.native_feed
+    for mod in pkgutil.walk_packages(portello_tpu_torch.__path__,
+                                     "portello_tpu_torch."):
+        importlib.import_module(mod.name)
     from portello_tpu_torch.kernels.resident import genome_tensor
     from portello_tpu_torch.models.batch import BucketConfig
     from portello_tpu_torch.models.pipeline_model import (
@@ -49,7 +47,7 @@ PROGRAM = textwrap.dedent(
         rev_batch_from_numpy)
     from portello_tpu_torch.testutil.batchgen import (
         make_item_arrays, resident_from_table, shift_win_base)
-    from portello_tpu.testutil.simulate import make_scenario
+    from portello_tpu_torch.testutil.simulate import make_scenario
 
     bcfg = BucketConfig(max_ops=32, max_blocks=16, max_seq=2048,
                         max_clusters=24, window=48)
@@ -82,7 +80,8 @@ PROGRAM = textwrap.dedent(
                 "--ref", d + "/ref.fa", "--device", "cpu", "--batch-size", "16",
                 "--feed", feed, "--local-workers", workers,
             ])
-    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+    leaked = sorted(m for m in sys.modules if m in ("jax", "portello_tpu")
+                    or m.startswith(("jax.", "portello_tpu.")))
     print("JAX_MODULES", leaked)
     assert not leaked, leaked
     """

@@ -2,7 +2,9 @@
 plain versions against the Pallas ``window_match_runs_batch`` kernel in
 interpret mode and a per-window numpy reference, and the kernel's shared
 per-window compare (``csrc/window_runs.h``) built with g++ and held against
-the plain versions.  (The CUDA kernel itself runs only on a GPU:
+the plain versions: the byte sources, the register lookup that decodes read
+nibbles, and the runs the kernel takes from a mismatch mask gathered by two
+32-lane ballots.  (The CUDA kernel itself runs only on a GPU:
 ``chip_smoke.py`` checks it there.)"""
 
 import ctypes
@@ -183,6 +185,27 @@ extern "C" void resident_runs(const uint8_t* genome, int64_t genome_base,
   }
 }
 
+// The runs of n windows from their mismatch bytes (n, 64), as the kernel
+// takes them: ballot 1 over positions t = lane, ballot 2 over t = lane + 32,
+// t < window, joined into one 64-bit mask.
+extern "C" void mask_runs(const uint8_t* mismatch, int n, int window,
+                          int32_t* lead, int32_t* trail) {
+  for (int i = 0; i < n; ++i) {
+    uint32_t lo = 0, hi = 0;
+    for (int lane = 0; lane < 32; ++lane) {
+      if (lane < window && mismatch[i * 64 + lane]) lo |= 1u << lane;
+      if (lane + 32 < window && mismatch[i * 64 + lane + 32]) hi |= 1u << lane;
+    }
+    const uint64_t m = lo | (uint64_t(hi) << 32);
+    lead[i] = ptt::leading_run_from_mismatch(m, window);
+    trail[i] = ptt::trailing_run_from_mismatch(m, window);
+  }
+}
+
+extern "C" void decode_bases(int32_t* out) {
+  for (int nib = 0; nib < 16; ++nib) out[nib] = ptt::decode_base(nib);
+}
+
 extern "C" void table_runs(const uint8_t* a, const uint8_t* b_tab, int nsb,
                            const int32_t* ia, const int32_t* ib, int b, int c,
                            int window, int32_t* fwd, int32_t* rev) {
@@ -215,6 +238,8 @@ def shim(tmp_path_factory):
     lib.resident_runs.argtypes = [vp, ll, ll, vp, vp, i, vp, vp, vp, vp, vp,
                                   i, i, i, vp, vp]
     lib.table_runs.argtypes = [vp, vp, i, vp, vp, i, i, i, vp, vp]
+    lib.mask_runs.argtypes = [vp, i, i, vp, vp]
+    lib.decode_bases.argtypes = [vp]
     return lib
 
 
@@ -284,6 +309,37 @@ def test_header_table_equals_plain(shim):
     )
     assert np.array_equal(fwd, want_f.numpy())
     assert np.array_equal(rev, want_r.numpy())
+
+
+@pytest.mark.parametrize("window", [1, 31, 32, 33, 48, 63, 64])
+def test_header_mask_runs_equal_plain(shim, window):
+    """Leading and trailing runs from the two-ballot mismatch mask equal
+    the plain runs of the same equality rows, including the all-equal and
+    all-different rows and mismatches only at a window's first or last
+    position."""
+    rng = np.random.default_rng(window)
+    n = 400
+    mismatch = (rng.random((n, 64)) < rng.choice([0.01, 0.05, 0.3], (n, 1)))
+    mismatch[0] = False
+    mismatch[1] = True
+    mismatch[2, :] = False
+    mismatch[2, 0] = True
+    mismatch[3, :] = False
+    mismatch[3, window - 1] = True
+    mismatch = mismatch.astype(np.uint8)
+    lead = np.empty(n, np.int32)
+    trail = np.empty(n, np.int32)
+    shim.mask_runs(_ptr(mismatch), n, window, _ptr(lead), _ptr(trail))
+    want_lead, want_trail = twm._runs(torch.from_numpy(mismatch[:, :window] == 0))
+    assert np.array_equal(lead, want_lead.numpy())
+    assert np.array_equal(trail, want_trail.numpy())
+    assert lead[0] == trail[0] == window and lead[1] == trail[1] == 0
+
+
+def test_header_decode_base_equals_symbol_table(shim):
+    out = np.empty(16, np.int32)
+    shim.decode_bases(_ptr(out))
+    assert bytes(out.astype(np.uint8)) == SEQ_SYMBOLS
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
