@@ -14,7 +14,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    is integers); median CUDA-event times of both.  Kernel 1 also runs on
    the reverse step's stage-B emission streams (K=257 and K=2049, odd
    widths with zero-length non-PAD ops), kernel 2 on stage A's homology
-   runs (backward, contig windows, limits up to the read length).  The
+   runs (backward, contig windows, limits up to the read length), on the
+   edges of its contract (rows not a multiple of 16 bytes, windows of 64
+   and 100) and on the very calls the table step and the reverse step make
+   on phase 4's batch, recorded by a wrapper patched over its own.  The
    window-runs kernel runs both of its contracts, the resident one on a
    synthetic 3.1 Gbp genome on the card (offsets past 2^31, windows at the
    genome's end).
@@ -293,6 +296,115 @@ def match_case(rng, b: int, c: int, w: int, length: int):
     return a, bb, ia, ib, limit
 
 
+def match_run_edge_cases(dev):
+    """Kernel 2 at B=512, C=96 on the edges of its contract, from a seed of
+    their own: rows of 24,571 bytes (not a multiple of 16, so rows start at
+    every offset from a 16-byte boundary), a window of 64 (one whole
+    mismatch mask) and of 100 (a second 64-position chunk), both
+    directions.  Returns (label, args) pairs, args as ``match_run_cuda``
+    takes them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 2)
+    cases = []
+    for w, length in ((48, 24571), (64, 24576), (100, 24576)):
+        a, bb, ia, ib, limit = match_case(rng, 512, 96, w, length)
+        t = [torch.from_numpy(x).to(dev) for x in (a, ia, bb, ib, limit)]
+        for rev in (False, True):
+            cases.append((f"edge W={w} L={length}", (*t, w, rev)))
+    return cases
+
+
+def captured_match_runs(rev_arrays, dev):
+    """Kernel 2's calls on the main path's own B=512 batch (phase 4's):
+    the table step's two (the right edges of the clusters, then the left
+    edges, whose limit depends on the first call's runs) and the reverse
+    step's stage A, recorded with their inputs by a wrapper patched over
+    ``cluster_utils.match_run_cuda``, which ``match_run`` reads at each
+    call.  Returns (label, args, launches per batch) triples."""
+    import torch
+
+    from portello_tpu_torch.kernels import cluster_utils
+    from portello_tpu_torch.models.pipeline_model import (
+        DEFAULT_BUCKETS,
+        batch_from_numpy,
+        bucket_kwargs,
+        fwd_batch,
+        rev_batch,
+        rev_batch_from_numpy,
+    )
+
+    kw = bucket_kwargs(DEFAULT_BUCKETS[0])
+    table_arrays = tuple(rev_arrays[:4]) + tuple(rev_arrays[6:])
+    calls = []
+    real = cluster_utils.match_run_cuda
+
+    def record(*args):
+        calls.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                           for x in args))
+        return real(*args)
+
+    cluster_utils.match_run_cuda = record
+    try:
+        fwd_batch(*batch_from_numpy(table_arrays, dev), **kw)
+        n_table = len(calls)
+        rev_batch(*rev_batch_from_numpy(rev_arrays, dev), **kw)
+    finally:
+        cluster_utils.match_run_cuda = real
+    require(n_table == 2 and len(calls) == 5,
+            f"kernel 2 calls: {n_table} in the table step, "
+            f"{len(calls) - n_table} in the reverse step (want 2 and 3)")
+    return [("table step, right edges", calls[0], "2 per table batch"),
+            ("table step, left edges", calls[1], "2 per table batch"),
+            ("reverse step, stage A", calls[2], "1 per reverse batch")]
+
+
+def check_match_run(label, args):
+    """Kernel 2 on ``args`` against its plain version (equality required)
+    and timed; returns (max abs err, ms, plain ms, bytes)."""
+    import torch
+
+    from portello_tpu_torch.kernels.cluster_utils import (
+        match_run_cuda,
+        match_run_plain,
+    )
+
+    seq_a, _, seq_b, _, limit, w, rev = args
+    got = match_run_cuda(*args)
+    want = match_run_plain(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err([got], [want])
+    what = (f"match_run {label} B={limit.shape[0]} C={limit.shape[1]} W={w} "
+            f"L={seq_a.shape[1]}/{seq_b.shape[1]} "
+            f"{'backward' if rev else 'forward'}")
+    require(err == 0, f"{what}: kernel != plain (max abs err {err})")
+    ms, pms, times = _timed(lambda: match_run_cuda(*args),
+                            lambda: match_run_plain(*args))
+    nbytes = match_run_bytes(limit, got, w)
+    live = limit > 0
+    log(f"kernel {what}: equal; {int(live.sum())} pairs with limit > 0 "
+        f"({int((limit > w).sum())} above the window), mean run "
+        f"{float(got[live].float().mean()) if bool(live.any()) else 0.0:.2f}"
+        f" where live; {times}; {_bound_text(nbytes, ms)}")
+    return err, ms, pms, nbytes
+
+
+def match_run_dense_cases(rng, dev):
+    """Kernel 2 on the dense synthetic inputs of ``match_case`` at W=48,
+    (C, L) = (96, 24,576) and (512, 65,536), both directions: every pair
+    has a limit in [-2, W + 8]."""
+    import torch
+
+    cases = []
+    for c, length in ((96, 24576), (512, 65536)):
+        a, bb, ia, ib, limit = match_case(rng, 512, c, W, length)
+        t = [torch.from_numpy(x).to(dev) for x in (a, ia, bb, ib, limit)]
+        for rev in (False, True):
+            cases.append((f"dense C={c}", (*t, W, rev)))
+    return cases
+
+
 def _timed(kernel, plain):
     """(kernel ms, plain ms, log text): device time per call, and the
     CUDA-event time of one call with its host overhead."""
@@ -317,10 +429,6 @@ def phase_kernels(rng, rev_arrays):
     from portello_tpu_torch.kernels.cigar_kernels import (
         cleanup_and_compress_cuda,
         cleanup_and_compress_plain,
-    )
-    from portello_tpu_torch.kernels.cluster_utils import (
-        match_run_cuda,
-        match_run_plain,
     )
 
     dev = torch.device("cuda")
@@ -353,31 +461,17 @@ def phase_kernels(rng, rev_arrays):
     results["cleanup_and_compress_err"] = err1
 
     err2 = 0
-    for c_, length in ((96, 24576), (512, 65536)):
-        w = 48
-        a, bb, ia, ib, limit = match_case(rng, 512, c_, w, length)
-        ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(bb).to(dev)
-        tia, tib = torch.from_numpy(ia).to(dev), torch.from_numpy(ib).to(dev)
-        tl = torch.from_numpy(limit).to(dev)
-        for rev in (False, True):
-            got = match_run_cuda(ta, tia, tb, tib, tl, w, rev)
-            want = match_run_plain(ta, tia, tb, tib, tl, w, rev)
-            torch.cuda.synchronize()
-            err = max_abs_err([got], [want])
-            require(err == 0, f"match_run C={c_} L={length} rev={rev}: "
-                    f"kernel != plain (max abs err {err})")
-            err2 = max(err2, err)
-            ms, pms, times = _timed(
-                lambda: match_run_cuda(ta, tia, tb, tib, tl, w, rev),
-                lambda: match_run_plain(ta, tia, tb, tib, tl, w, rev),
-            )
-            nbytes = match_run_bytes(tl, got, w)
-            log(f"kernel match_run B=512 C={c_} W={w} L={length} "
-                f"{'backward' if rev else 'forward'}: equal (mean run "
-                f"{float(got.float().mean()):.2f}); {times}; "
-                f"{_bound_text(nbytes, ms)}")
-            if (c_, rev) == (96, True):
-                results["match_run"] = (ms, pms, nbytes)
+    for label, args in match_run_dense_cases(rng, dev):
+        err, ms, pms, nbytes = check_match_run(label, args)
+        err2 = max(err2, err)
+        if label == "dense C=96" and args[-1]:
+            results["match_run"] = (ms, pms, nbytes)
+    for label, args in match_run_edge_cases(dev):
+        err2 = max(err2, check_match_run(label, args)[0])
+    for label, args, per_batch in captured_match_runs(rev_arrays, dev):
+        log(f"kernel match_run on the main path's inputs: {label}, "
+            f"{per_batch}")
+        err2 = max(err2, check_match_run(label, args)[0])
     results["match_run_err"] = err2
     shift = phase_shift_kernels(rng, rev_arrays)
     results["cleanup_and_compress_err"] = max(err1, shift.pop("compress_err"))
@@ -433,26 +527,15 @@ def shift_case(arrays, bcfg):
                             end_read.contiguous(), limit.contiguous())
 
 
-def phase_shift_kernels(rng, rev_arrays):
-    """Kernels 1 and 2 on the inputs the reverse step gives them: stage B's
-    emission streams (odd K, zero-length non-PAD ops, a trailing flush in a
-    partial last 32-lane chunk) and stage A's homology runs (backward, on
-    contig windows, limits far above the window).  The primary bucket's
-    case is the B=512 batch of phase 4; the widest bucket's is 64 items with
-    half of them at nonzero window bases, each row repeated 8 times; in
-    both, two items in three carry a zero-length soft clip."""
-    import torch
-
-    from portello_tpu_torch.kernels.cigar_kernels import (
-        M,
-        PAD,
-        cleanup_and_compress_cuda,
-        cleanup_and_compress_plain,
-    )
-    from portello_tpu_torch.kernels.cluster_utils import (
-        match_run_cuda,
-        match_run_plain,
-    )
+def reverse_step_cases(rng, rev_arrays, dev):
+    """Kernels 1 and 2's inputs from the reverse step, on ``dev``: per
+    bucket (label, stage B's emission stream (codes, lens), its max_out,
+    stage A's homology-run arguments as ``match_run_cuda`` takes them
+    without the window and direction, the window, the most ops of an
+    item).  The primary bucket's case is the B=512 batch of phase 4; the
+    widest bucket's is 64 items with half of them at nonzero window bases,
+    each row repeated 8 times; in both, two items in three carry a
+    zero-length soft clip."""
     from portello_tpu_torch.models.pipeline_model import (
         DEFAULT_BUCKETS,
         _rev_ops_bound,
@@ -462,7 +545,6 @@ def phase_shift_kernels(rng, rev_arrays):
         shift_win_base,
     )
 
-    dev = torch.device("cuda")
     t0 = time.perf_counter()
     wide = DEFAULT_BUCKETS[2]
     wide_arrays, _ = shift_win_base(make_item_arrays(
@@ -481,8 +563,26 @@ def phase_shift_kernels(rng, rev_arrays):
     log(f"kernels on reverse-step inputs: plain stage A on the CPU for a "
         f"B=512 primary batch and 64 widest-bucket items in "
         f"{time.perf_counter() - t0:.1f} s")
+    return cases
+
+
+def phase_shift_kernels(rng, rev_arrays):
+    """Kernels 1 and 2 on the inputs the reverse step gives them
+    (``reverse_step_cases``): stage B's emission streams (odd K,
+    zero-length non-PAD ops, a trailing flush in a partial last 32-lane
+    chunk) and stage A's homology runs (backward, on contig windows, limits
+    far above the window)."""
+    import torch
+
+    from portello_tpu_torch.kernels.cigar_kernels import (
+        M,
+        PAD,
+        cleanup_and_compress_cuda,
+        cleanup_and_compress_plain,
+    )
 
     results = {"compress_err": 0, "match_run_err": 0}
+    cases = reverse_step_cases(rng, rev_arrays, torch.device("cuda"))
     for label, (codes, lens), max_out, homology, w, max_n in cases:
         b, k = codes.shape
         got = cleanup_and_compress_cuda(codes, lens, max_out)
@@ -506,26 +606,9 @@ def phase_shift_kernels(rng, rev_arrays):
             f"{_bound_text(compress_bytes(b, k, max_out), ms)}")
         results[f"compress_stage_b_{label.split()[0]}"] = (k, ms, pms)
 
-        cwin, end_ref, rseq, end_read, limit = homology
-        got = match_run_cuda(cwin, end_ref, rseq, end_read, limit, w, True)
-        want = match_run_plain(cwin, end_ref, rseq, end_read, limit, w, True)
-        torch.cuda.synchronize()
-        err = max_abs_err([got], [want])
-        require(err == 0, f"match_run stage-A homology ({label}): kernel != "
-                f"plain (max abs err {err})")
+        err, ms, pms, _ = check_match_run(f"stage-A homology ({label})",
+                                          (*homology, w, True))
         results["match_run_err"] = max(results["match_run_err"], err)
-        ms, pms, times = _timed(
-            lambda: match_run_cuda(cwin, end_ref, rseq, end_read, limit, w, True),
-            lambda: match_run_plain(cwin, end_ref, rseq, end_read, limit, w, True),
-        )
-        live = limit > 0
-        log(f"kernel match_run stage-A homology ({label}) B={b} "
-            f"C={limit.shape[1]} W={w} L={cwin.shape[1]} backward: equal; "
-            f"{int(live.sum())} clusters, limits up to {int(limit.max())} "
-            f"({int((limit > w).sum())} above the window), runs at the "
-            f"window {int((got >= w).sum())}, mean run "
-            f"{float(got[live].float().mean()):.2f}; {times}; "
-            f"{_bound_text(match_run_bytes(limit, got, w), ms)}")
         results[f"match_run_stage_a_{label.split()[0]}"] = (ms, pms)
     return results
 

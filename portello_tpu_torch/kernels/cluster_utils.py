@@ -119,9 +119,15 @@ def match_run_plain(seq_a, start_a, seq_b, start_b, limit, window: int,
 
 def match_run_cuda(seq_a, start_a, seq_b, start_b, limit, window: int,
                    rev: bool):
-    """Launch ``csrc/match_run.cu``; same contract as ``match_run_plain``."""
+    """Launch ``csrc/match_run.cu``; same contract as ``match_run_plain``.
+
+    Raises on what the kernel does not take: a CPU tensor, another dtype or
+    rank, a non-contiguous tensor, mismatched shapes or devices, a negative
+    window."""
     from portello_tpu_torch.kernels import _cuda
 
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
     _cuda.require(seq_a, "seq_a", torch.uint8, 2)
     _cuda.require(seq_b, "seq_b", torch.uint8, 2)
     for name, x in (("start_a", start_a), ("start_b", start_b),

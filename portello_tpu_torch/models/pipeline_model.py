@@ -319,6 +319,8 @@ class DeviceEngine:
         # left-shift (reference read_alignment_scanner.rs:159-176) on the
         # host during prep, so rev items dispatch the forward step;
         # PTPU_HOST_SHIFT=0 (or host_shift=False) runs rev_batch instead.
+        # Exactly "0", as the JAX DeviceEngine reads it; the native feed
+        # reads the switch as its C++ scanner does (host_shift_routing).
         self.host_shift = (
             host_shift
             if host_shift is not None

@@ -522,21 +522,27 @@ def _resident_slot_tensors(d, bcfg, bs: int, device, goff: np.ndarray
 
 
 def host_shift_routing() -> bool:
-    """Host-shift routing unless ``PTPU_HOST_SHIFT=0`` (the switch the C++
-    scanner reads too)."""
-    return os.environ.get("PTPU_HOST_SHIFT", "1") != "0"
+    """The native feed's routing, read exactly as its C++ scanner reads it
+    (``ptscan_create`` in ``io/native/ptscan.cc``): device-shift routing when
+    ``PTPU_HOST_SHIFT`` is set and starts with ``0`` (``0``, ``00`` and
+    ``0x`` alike), host-shift routing otherwise.
+
+    The scanner picks its slot kind and emits reverse batches on its own
+    reading, so the feed must agree with it to the character: where it read
+    ``00`` as host-shift, it asked for resident slots that the scanner never
+    filled.  The Python feed's ``DeviceEngine`` keeps the JAX package's
+    reading, ``!= "0"`` (``models/pipeline_model.py``): no C++ reads the
+    switch on that path, and there it agrees with the JAX ``DeviceEngine``."""
+    return not os.environ.get("PTPU_HOST_SHIFT", "").startswith("0")
 
 
 def resident_mode() -> bool:
-    """Resident slot mode unless ``PTPU_RESIDENT=0`` (``1``, the JAX
-    package's switch to force it, is accepted and is the default here), and
-    only under host-shift routing: the reverse step reads table slots, so
-    the scanner emits table slots under ``PTPU_HOST_SHIFT=0``, as in the
-    JAX package."""
-    flag = os.environ.get("PTPU_RESIDENT", "")
-    if flag not in ("", "0", "1"):
-        raise ValueError(f"PTPU_RESIDENT must be 0 or 1, got {flag!r}")
-    return flag != "0" and host_shift_routing()
+    """Resident slot mode unless ``PTPU_RESIDENT=0``, and only under
+    host-shift routing: the reverse step reads table slots, so the scanner
+    emits table slots under device-shift routing, as in the JAX package.
+    ``1`` forces it and is the default here; any other value is read as
+    unset, as the JAX package reads it."""
+    return os.environ.get("PTPU_RESIDENT", "") != "0" and host_shift_routing()
 
 
 def _cram_fetch_plan(cram_path: str, contig_list, shard_plan):
@@ -611,8 +617,9 @@ def scan_and_remap_reads_native(
     resident = resident_mode()
     if not host_shift_routing():
         logger.info(
-            "Device-shift routing (PTPU_HOST_SHIFT=0): reverse-contig batches "
-            "run rev_batch; table slots"
+            f"Device-shift routing (PTPU_HOST_SHIFT="
+            f"{os.environ['PTPU_HOST_SHIFT']}): reverse-contig batches run "
+            "rev_batch; table slots"
         )
     genome = res_goff = None
     if resident:

@@ -1,10 +1,11 @@
 """PyTorch port CLI: ``python -m portello_tpu_torch.main --device cpu`` writes
 the same records as JAX's ``--device cpu`` and as the exact host path: on the
 native feed in resident slot mode (the default) and on table slots
-(``PTPU_RESIDENT=0``), under device-shift routing (``PTPU_HOST_SHIFT=0``),
-and on the Python feed under both routings; ``--feed auto`` without the
-native scanner runs the Python feed; ``--device cuda`` without a GPU exits
-non-zero."""
+(``PTPU_RESIDENT=0``), under device-shift routing (``PTPU_HOST_SHIFT=0``,
+and ``00``: the native feed reads the switch as its scanner does), and on
+the Python feed under both routings; an unknown ``PTPU_RESIDENT`` is read
+as unset; ``--feed auto`` without the native scanner runs the Python feed;
+``--device cuda`` without a GPU exits non-zero."""
 
 import os
 import subprocess
@@ -49,6 +50,17 @@ def scenario(tmp_path_factory):
     make_scenario(str(d), rng=np.random.default_rng(21),
                   n_reads_per_contig=40, read_len=300)
     return d
+
+
+@pytest.fixture(scope="module")
+def host_tag(scenario):
+    """The tag of one ``--device host`` run of the JAX package's CLI.  The
+    host path reads neither ``PTPU_HOST_SHIFT`` nor ``PTPU_RESIDENT``, so
+    its records hold for a port run under any value of either."""
+    from portello_tpu.main import main as jax_main
+
+    jax_main(_args(scenario, "host_any_env", "host"))
+    return "host_any_env"
 
 
 def test_port_cpu_native_equals_jax_and_host(scenario):
@@ -209,14 +221,64 @@ def test_feed_native_without_native_scanner_exits(scenario, monkeypatch):
     assert not (scenario / "remapped_nolib.bam").exists()
 
 
-def test_bad_resident_switch_is_refused(scenario, monkeypatch, capsys):
+def test_native_device_shift_prefix_equals_jax_and_host(scenario, monkeypatch,
+                                                       host_tag):
+    """PTPU_HOST_SHIFT=00 on the native feed: the scanner reads any value
+    that starts with ``0`` as device-shift routing, and so does the port's
+    feed now.  It runs table slots and rev_batch on the reverse batches (it
+    asked for resident slots the scanner never filled, and read a null
+    pointer), with the records of JAX's native feed under the same value
+    and of --device host."""
+    from portello_tpu.main import main as jax_main
     from portello_tpu_torch.main import main as port_main
 
-    monkeypatch.setenv("PTPU_RESIDENT", "yes")
-    with pytest.raises(SystemExit) as e:
-        port_main(_args(scenario, "badres", "cpu", "--feed", "native"))
-    assert e.value.code == 2
-    assert "PTPU_RESIDENT" in capsys.readouterr().err
+    monkeypatch.setenv("PTPU_HOST_SHIFT", "00")
+    jax_main(_args(scenario, "jax_ds00", "cpu", "--feed", "native"))
+    stats = _spy_native(monkeypatch)
+    port_main(_args(scenario, "ds00", "cpu", "--feed", "native"))
+    assert [s["resident"] for s in stats] == [False]
+    assert stats[0]["rev_batches"] > 0
+    _assert_same_records(scenario, "ds00", "jax_ds00", host_tag)
+
+
+def test_bad_resident_switch_is_refused(scenario, monkeypatch, host_tag):
+    """An unknown PTPU_RESIDENT (``true``) is refused as a switch: it reads
+    as unset, as in the JAX package, so the port runs its default resident
+    slots and exits 0 (it exited 2) with the records of --device host."""
+    from portello_tpu_torch.main import main as port_main
+
+    monkeypatch.setenv("PTPU_RESIDENT", "true")
+    stats = _spy_native(monkeypatch)
+    port_main(_args(scenario, "badres", "cpu", "--feed", "native"))
+    assert [s["resident"] for s in stats] == [True]
+    _assert_same_records(scenario, "badres", host_tag)
+
+
+@pytest.mark.parametrize("host_shift,resident,want", [
+    (None, None, (True, True)),
+    ("0", None, (False, False)),
+    ("00", None, (False, False)),
+    ("0x", "1", (False, False)),
+    ("1", "0", (True, False)),
+    ("10", "true", (True, True)),
+    (" 0", "", (True, True)),
+    ("", "1", (True, True)),
+])
+def test_native_feed_reads_switches_as_the_scanner(monkeypatch, host_shift,
+                                                   resident, want):
+    """(host-shift routing, resident slots) for each pair of switch values:
+    device-shift routing iff PTPU_HOST_SHIFT starts with ``0``
+    (``ptscan_create``), resident slots unless PTPU_RESIDENT is ``0`` and
+    only under host-shift routing."""
+    from portello_tpu_torch.pipeline import native_feed as port_feed
+
+    for name, value in (("PTPU_HOST_SHIFT", host_shift),
+                        ("PTPU_RESIDENT", resident)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    assert (port_feed.host_shift_routing(), port_feed.resident_mode()) == want
 
 
 def test_port_host_device_equals_host_path(scenario):
