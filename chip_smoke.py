@@ -28,12 +28,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``rev_batch`` on CUDA against the CPU, at window base 0 and with half the
    items at nonzero window bases; every output field equal; ms/batch of
    each step, device busy share, H2D bytes, fallback count, kernel launches
-   per path.
+   per path.  Then the three sharded steps (``parallel/mesh.py``) on a mesh
+   of every visible GPU, or of two shards on the one card: the genome
+   replicated once per distinct device (its allocation logged), every
+   output field equal to the single-device step's, each kernel launched n
+   times per batch, ms/batch and device time beside the single-device
+   step's; and ``graft_entry``: ``entry()`` on the card equal to
+   ``entry(device="cpu")``, ``dryrun_multichip`` on the same mesh.
 5. e2e     -- the CLI (``python -m portello_tpu_torch.main --device cuda``)
    on the 18 kb bench scenario: the native feed in resident slot mode (the
-   default), on table slots (``PTPU_RESIDENT=0``) and under device-shift
-   routing (``PTPU_HOST_SHIFT=0``, reverse batches on table slots); the
-   Python feed under host-shift and under device-shift routing.  The sorted
+   default), on table slots (``PTPU_RESIDENT=0``), under device-shift
+   routing (``PTPU_HOST_SHIFT=0``, reverse batches on table slots), and
+   with ``PTPU_SHARD=1`` in resident slot mode and under device-shift
+   routing (sharded over every GPU; on a one-GPU machine a one-shard
+   mesh); the Python feed under host-shift and under device-shift routing.
+   The sorted
    SAM records of each must equal the exact host path's, run both as
    ``python -m portello_tpu.main --device host`` (the JAX package's CLI in a
    subprocess; nothing of it is imported here) and as ``python -m
@@ -70,6 +79,9 @@ W = 48                        # the buckets' simplify window
 
 KERNELS = ("cleanup_and_compress", "match_run", "window_match")
 
+# The order in which phase 4 times its steps, single-device and sharded.
+STEP_ORDER = ("table", "resident", "rev", "rev", "resident", "table")
+
 # The least time for a kernel's work: the bytes it must move (each input read
 # once, each output written once) over the H100 SXM's HBM3 rate at its full
 # 700 W (NVIDIA's data sheet).  The three kernels do a few integer operations
@@ -90,6 +102,9 @@ PATH_KERNELS = {
     "table": ("cleanup_and_compress", "match_run"),
     "rev": ("cleanup_and_compress", "match_run"),
     "native_devshift": ("cleanup_and_compress", "match_run"),
+    # the native feed's sharded dispatch (PTPU_SHARD=1)
+    "shard_resident": ("cleanup_and_compress", "window_match"),
+    "shard_devshift": ("cleanup_and_compress", "match_run"),
     "python": ("cleanup_and_compress", "match_run"),
     "python_devshift": ("cleanup_and_compress", "match_run"),
     # phase 5's scale-out runs, each process on resident slots
@@ -749,7 +764,8 @@ def phase_window_match(rng):
 
 # ---------------------------------------------------------------- phase 4
 def _step_times(step, b: int, label: str):
-    """Host-clock, CUDA-event and device times of one device step."""
+    """Host-clock, CUDA-event and device times of one device step; returns
+    (host-clock ms, device ms, device kernels and copies) per batch."""
     import torch
 
     for _ in range(3):
@@ -769,7 +785,7 @@ def _step_times(step, b: int, label: str):
         f"items/s; {how} time {dev_ms:.3f} ms/batch in {n_dev:.0f} device "
         f"kernels and copies, busy share {dev_ms / ms:.3f} of the host-clock "
         f"step")
-    return ms
+    return ms, dev_ms, n_dev
 
 
 def _kernels_in_step(step, reps: int = 10) -> dict:
@@ -799,16 +815,6 @@ def _kernels_in_step(step, reps: int = 10) -> dict:
     return found
 
 
-def _equal_fields(got, want, what: str) -> None:
-    import torch
-
-    require(set(got) == set(want), f"{what}: output fields differ")
-    for key in want:
-        g, w = got[key].cpu(), want[key].cpu()
-        require(g.dtype == w.dtype and torch.equal(g, w),
-                f"{what}: field {key!r} differs")
-
-
 def hifi_batch(rng):
     """B=512 HiFi items (18 kb) in the primary bucket, as ``rev_batch``'s
     inputs; without ``win_base`` and ``contig_win`` they are ``fwd_batch``'s."""
@@ -823,9 +829,10 @@ def hifi_batch(rng):
     return arrays
 
 
-def phase_forward(rng, rev_arrays):
+def phase_forward(rng, rev_arrays, smi):
     import torch
 
+    from portello_tpu_torch.graft_entry import require_equal
     from portello_tpu_torch.kernels import _cuda
     from portello_tpu_torch.kernels.resident import genome_tensor
     from portello_tpu_torch.models.pipeline_model import (
@@ -868,7 +875,7 @@ def phase_forward(rng, rev_arrays):
     torch.cuda.synchronize()
     launches = {"table": dict(_cuda.launch_counts)}
     require_launches(launches["table"], "table", "forward table step")
-    _equal_fields(table, want, "forward table step CUDA vs CPU")
+    require_equal(table, want, "forward table step CUDA vs CPU")
 
     # resident slots: the genome goes to the card once
     t0 = time.perf_counter()
@@ -887,8 +894,8 @@ def phase_forward(rng, rev_arrays):
     torch.cuda.synchronize()
     launches["resident"] = dict(_cuda.launch_counts)
     require_launches(launches["resident"], "resident", "forward resident step")
-    _equal_fields(res, table, "forward resident step vs table step (CUDA)")
-    _equal_fields(res, res_cpu, "forward resident step CUDA vs CPU")
+    require_equal(res, table, "forward resident step vs table step (CUDA)")
+    require_equal(res, res_cpu, "forward resident step CUDA vs CPU")
 
     # the reverse step, at window base 0 and with half the items at nonzero
     # window bases (each such window cut out of a longer contig)
@@ -901,12 +908,12 @@ def phase_forward(rng, rev_arrays):
     torch.cuda.synchronize()
     launches["rev"] = dict(_cuda.launch_counts)
     require_launches(launches["rev"], "rev", "reverse step")
-    _equal_fields(rev, rev_cpu, "reverse step CUDA vs CPU")
+    require_equal(rev, rev_cpu, "reverse step CUDA vs CPU")
     moved_arrays, moved = shift_win_base(rev_arrays, rng)
     moved_cpu = rev_batch(*rev_batch_from_numpy(moved_arrays, "cpu"), **kw)
     moved_out = rev_batch(*rev_batch_from_numpy(moved_arrays, cuda), **kw)
     torch.cuda.synchronize()
-    _equal_fields(moved_out, moved_cpu,
+    require_equal(moved_out, moved_cpu,
                   "reverse step at nonzero window bases CUDA vs CPU")
     keep = ~rev_cpu["fallback"] & ~moved_cpu["fallback"]
     for key in rev_cpu:
@@ -944,10 +951,10 @@ def phase_forward(rng, rev_arrays):
     labels = {"table": "forward table step", "resident": "forward resident step",
               "rev": "reverse step"}
     times = {mode: [] for mode in steps}
-    for mode in ("table", "resident", "rev", "rev", "resident", "table"):
+    for mode in STEP_ORDER:
         times[mode].append(_step_times(steps[mode], b, labels[mode]))
     log("steps: ms/batch (host clock) " + ", ".join(
-        f"{mode} " + " / ".join(f"{t:.3f}" for t in times[mode])
+        f"{mode} " + " / ".join(f"{t[0]:.3f}" for t in times[mode])
         for mode in steps))
     in_step = {}
     for mode in ("resident", "table"):
@@ -961,7 +968,148 @@ def phase_forward(rng, rev_arrays):
                 f"the resident step's profile names no {name} kernel")
     del genome
     torch.cuda.empty_cache()
+    phase_sharded(genome_np, kw,
+                  {"table": table_args, "resident": res_args, "rev": rev_args},
+                  {"table": table, "resident": res, "rev": rev},
+                  launches, times, smi)
     return launches, in_step
+
+
+def _peak_bytes(fn, devices) -> int:
+    """The sum over ``devices`` of the peak bytes allocated while ``fn``
+    runs once."""
+    import torch
+
+    for d in devices:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return sum(torch.cuda.max_memory_allocated(d) for d in devices)
+
+
+def smoke_mesh():
+    """Every visible GPU where there are several, else two shards on the
+    one card; and a phrase that says which."""
+    from portello_tpu_torch.parallel.mesh import local_devices, make_mesh
+
+    devs = local_devices("cuda")
+    if len(devs) > 1:
+        return make_mesh(devices=devs), f"every visible GPU ({len(devs)})"
+    return make_mesh(devices=devs * 2), "two shards on one card (cuda:0 twice)"
+
+
+def phase_sharded(genome_np, kw, args, single, launches, times, smi):
+    """The three sharded steps (``parallel/mesh.py``) on ``smoke_mesh()``
+    at phase 4's B=512 batch, the resident genome replicated once per
+    distinct device: every output field equal to the single-device step's
+    (tolerance 0), each kernel launched n times as often per batch, and
+    timed beside the single-device step; then ``graft_entry``: ``entry()``
+    on the card against ``entry(device="cpu")``, and ``dryrun_multichip``
+    on the same mesh."""
+    import torch
+
+    from portello_tpu_torch import graft_entry
+    from portello_tpu_torch.graft_entry import require_equal
+    from portello_tpu_torch.kernels import _cuda
+    from portello_tpu_torch.models.pipeline_model import (
+        fwd_batch,
+        fwd_batch_resident,
+        rev_batch,
+    )
+    from portello_tpu_torch.parallel.mesh import (
+        make_sharded_fwd_resident_step,
+        make_sharded_fwd_step,
+        make_sharded_rev_step,
+        replicate,
+    )
+
+    mesh, which = smoke_mesh()
+    n = len(mesh)
+    distinct = sorted(set(mesh), key=str)
+    log(f"sharded: a mesh of {n} shards, {which}: "
+        f"{', '.join(str(d) for d in mesh)}; the batch starts on {mesh[0]}, "
+        f"so a shard on another device is copied there in each call")
+    before = {d: torch.cuda.memory_allocated(d) for d in distinct}
+    for d in distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    t0 = time.perf_counter()
+    replicas = replicate(mesh, genome_np)
+    for d in distinct:
+        torch.cuda.synchronize(d)
+    upload_s = time.perf_counter() - t0
+    for d in distinct:
+        added = torch.cuda.memory_allocated(d) - before[d]
+        require(abs(added - genome_np.nbytes) < 2**21,
+                f"sharded: replicate added {added} bytes on {d} for a "
+                f"{genome_np.nbytes} byte genome")
+        log(f"sharded: genome replicated, one copy on {d}: +{added} bytes "
+            f"allocated ({genome_np.nbytes} byte genome), max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated(d)} bytes; "
+            f"{sum(1 for m in mesh if m == d)} shards share it")
+    log(f"sharded: {len(distinct)} genome copies for {n} shards uploaded in "
+        f"{upload_s:.2f} s")
+
+    steps = {
+        "table": lambda: make_sharded_fwd_step(mesh, **kw)(*args["table"]),
+        "resident": lambda: make_sharded_fwd_resident_step(mesh, **kw)(
+            *args["resident"], replicas),
+        "rev": lambda: make_sharded_rev_step(mesh, **kw)(*args["rev"]),
+    }
+    labels = {"table": "forward table step", "resident": "forward resident step",
+              "rev": "reverse step"}
+    b = args["table"][0].shape[0]
+    for mode, step in steps.items():
+        _cuda.reset_launch_counts()
+        out = step()
+        torch.cuda.synchronize()
+        got = dict(_cuda.launch_counts)
+        require_equal(out, single[mode], f"sharded {labels[mode]} vs one device")
+        want = {k: n * v for k, v in launches[mode].items()}
+        require(got == want, f"sharded {labels[mode]}: launches {got}, want "
+                f"{n} x {launches[mode]}")
+        log(f"sharded {labels[mode]} B={b} over {n} shards of {b // n}: equal "
+            f"to the single-device step on all {len(out)} fields; launches per "
+            f"batch {json.dumps(got)} ({n} x the single-device count)")
+    one_device = {
+        "table": lambda: fwd_batch(*args["table"], **kw),
+        "resident": lambda: fwd_batch_resident(*args["resident"], replicas[0],
+                                               **kw),
+        "rev": lambda: rev_batch(*args["rev"], **kw),
+    }
+    for mode in steps:
+        log(f"sharded {labels[mode]}: peak device memory over one step "
+            f"(max_memory_allocated; the genome and the batch's inputs "
+            f"included): 1 shard {_peak_bytes(one_device[mode], mesh[:1])} "
+            f"bytes, {n} shards {_peak_bytes(steps[mode], distinct)} bytes")
+    sharded_times = {mode: [] for mode in steps}
+    for mode in STEP_ORDER:
+        sharded_times[mode].append(_step_times(
+            steps[mode], b, f"sharded {labels[mode]} ({n} shards)"))
+    for mode in steps:
+        one, many = times[mode], sharded_times[mode]
+        log(f"sharded {labels[mode]}: ms/batch (host clock + sync) 1 shard "
+            + " / ".join(f"{t[0]:.3f}" for t in one) + f", {n} shards "
+            + " / ".join(f"{t[0]:.3f}" for t in many)
+            + "; device time 1 shard "
+            + " / ".join(f"{t[1]:.3f}" for t in one) + f", {n} shards "
+            + " / ".join(f"{t[1]:.3f}" for t in many)
+            + f" ms; device kernels and copies per batch {one[0][2]:.0f} and "
+            f"{many[0][2]:.0f} ({smi})")
+    del replicas
+    torch.cuda.empty_cache()
+
+    fn, cuda_args = graft_entry.entry()
+    cpu_fn, cpu_args = graft_entry.entry(device="cpu")
+    require_equal(fn(*cuda_args), cpu_fn(*cpu_args),
+                  "graft_entry.entry() on the card vs on the CPU")
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(n, devices=mesh)
+    log(f"graft_entry: entry() on the card == entry(device='cpu') on all "
+        f"fields; dryrun_multichip({n}) on {which} passed (sharded fwd, "
+        f"resident and rev steps == one device) in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1029,12 +1177,15 @@ def _cli(module, d, tag, device, extra=(), env_extra=None):
 _H2D = re.compile(r"H2D per batch: (\d+) bytes \((\w+) slots, (\d+) batches, "
                   r"rev_batches (\d+) of (\d+) bytes\)")
 _PYFEED = re.compile(r"Python feed: (\d+) device batches, rev_batches (\d+)")
+_SHARDING = re.compile(r"Sharding batches over (\d+) local devices")
 
 # The CLI runs of phase 5: (path, --feed, environment).
 E2E_RUNS = (
     ("resident", "native", {}),
     ("table", "native", {"PTPU_RESIDENT": "0"}),
     ("native_devshift", "native", {"PTPU_HOST_SHIFT": "0"}),
+    ("shard_resident", "native", {"PTPU_SHARD": "1"}),
+    ("shard_devshift", "native", {"PTPU_SHARD": "1", "PTPU_HOST_SHIFT": "0"}),
     ("python", "python", {}),
     ("python_devshift", "python", {"PTPU_HOST_SHIFT": "0"}),
 )
@@ -1048,7 +1199,7 @@ def _feed_line(path, feed, err):
     if feed == "native":
         hm = _H2D.search(err)
         require(hm is not None, f"e2e {path}: no H2D line:\n{err[-3000:]}")
-        mode = "resident" if path == "resident" else "table"
+        mode = "resident" if path.endswith("resident") else "table"
         require(hm.group(2) == mode, f"e2e {path} run used {hm.group(2)} slots")
         n_rev = int(hm.group(4))
         text = (f"H2D {hm.group(1)} bytes/batch over {hm.group(3)} batches "
@@ -1201,6 +1352,7 @@ def phase_scale_out(d, want, threads, smi):
 
 def phase_e2e(smi):
     import numpy as np
+    import torch
 
     from portello_tpu_torch.testutil.simulate import make_scenario
 
@@ -1235,6 +1387,24 @@ def phase_e2e(smi):
             require(m is not None and lm is not None,
                     f"port CLI log lacks its stats lines:\n{err[-3000:]}")
             feed_text = _feed_line(path, feed, err)
+            # only PTPU_SHARD=1 shards, over every visible GPU; unset, the
+            # native feed of a multi-GPU machine says it uses one
+            sm = _SHARDING.search(err)
+            require((sm is not None) == ("PTPU_SHARD" in env),
+                    f"e2e {path}: Sharding line {'missing' if sm is None else 'present'}")
+            n_gpus = torch.cuda.device_count()
+            if feed == "native" and sm is None and n_gpus > 1:
+                require(f"{n_gpus} local GPUs visible; batches run on" in err,
+                        f"e2e {path}: no line saying {n_gpus} GPUs are visible")
+                feed_text += f"; one GPU of {n_gpus} (PTPU_SHARD unset)"
+            if sm is not None:
+                n_shards = int(sm.group(1))
+                require(n_shards == torch.cuda.device_count(),
+                        f"e2e {path}: {n_shards} shards on "
+                        f"{torch.cuda.device_count()} GPUs")
+                feed_text += (f"; sharded over {n_shards} local devices" + (
+                    " (a one-shard mesh on this one-GPU machine: phase 4 "
+                    "runs two shards on one card)" if n_shards == 1 else ""))
             launches = json.loads(lm.group(1))
             require_launches(launches, path, f"e2e {path} run")
             _log_lines(err, path, _TIMING_LINES)
@@ -1276,7 +1446,7 @@ def main() -> int:
         rng = np.random.default_rng(SEED)
         rev_arrays = hifi_batch(rng)
         kres = phase_kernels(rng, rev_arrays)
-        step_launches, in_step = phase_forward(rng, rev_arrays)
+        step_launches, in_step = phase_forward(rng, rev_arrays, smi_line)
         e2e = phase_e2e(smi_line)
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "portello_tpu")]

@@ -26,9 +26,15 @@ the scanner then emits table slots only, so the feed forces table slots as
 well, whatever ``PTPU_RESIDENT`` says.  Two batches stay in flight: the
 card computes batch N while the scanner preps batch N+1.
 
+Every batch goes through a sharded step of ``parallel/mesh.py``.  Its mesh
+is ``device`` alone, or with ``PTPU_SHARD=1`` the local devices: each batch
+then splits on dim 0, every device runs the whole step on its rows, with
+its own replica of the resident genome, and the outputs join on the first
+device before ``post``.
+
 A slot stays frozen only until its ``ptscan_post_results`` call.  The H2D
-copies here are plain pageable copies, which have consumed the slot when
-``.to(device)`` returns.
+copies here, one per shard, are plain pageable copies, which have consumed
+the slot when ``.to(device)`` returns.
 """
 
 from __future__ import annotations
@@ -47,15 +53,18 @@ import torch
 from portello_tpu_torch.kernels import _cuda
 from portello_tpu_torch.kernels.resident import (
     build_global_ref,
-    genome_tensor,
     split_global_base,
 )
 from portello_tpu_torch.models.pipeline_model import (
     DEFAULT_BUCKETS,
     bucket_kwargs,
-    fwd_batch,
-    fwd_batch_resident,
-    rev_batch,
+)
+from portello_tpu_torch.parallel.mesh import (
+    make_sharded_fwd_resident_step,
+    make_sharded_fwd_step,
+    make_sharded_rev_step,
+    replicate,
+    sharding_mesh,
 )
 from portello_tpu_torch.pipeline.read_scan import get_alignment_file_header
 
@@ -69,6 +78,8 @@ _SO = os.path.join(_HERE, "..", "_build", "native", "ptscan.so")
 _lib = None
 _lib_lock = threading.Lock()
 _build_error: str | None = None
+# the stats dict of the last scan_and_remap_reads_native run in this process
+_last_stats: dict = {}
 
 
 class _BatchDesc(ctypes.Structure):
@@ -479,33 +490,31 @@ def _cigar_arrays(d, bcfg, bs: int) -> tuple[np.ndarray, ...]:
     )
 
 
-def _slot_tensors(d, bcfg, bs: int, device) -> tuple[torch.Tensor, ...]:
-    """A table slot's arrays as fwd_batch's positional tensors on
-    ``device``."""
-    arrays = _cigar_arrays(d, bcfg, bs) + (
+def _slot_arrays(d, bcfg, bs: int) -> tuple[np.ndarray, ...]:
+    """A table slot's arrays, fwd_batch's positional inputs."""
+    return _cigar_arrays(d, bcfg, bs) + (
         _grab(d.ref_win, bs, bcfg.max_seq, np.uint8),
         _grab(d.ref_base, bs, 0),
         _grab(d.read_seq, bs, bcfg.max_seq, np.uint8),
     )
-    return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
-def _rev_slot_tensors(d, bcfg, bs: int, device) -> tuple[torch.Tensor, ...]:
-    """A reverse table slot's arrays as rev_batch's positional tensors on
-    ``device``: a table slot's, with each item's window base (B,) int32 and
-    reversed-contig window (B, max_seq) uint8 after its position."""
-    table = _slot_tensors(d, bcfg, bs, device)
+def _rev_slot_arrays(d, bcfg, bs: int) -> tuple[np.ndarray, ...]:
+    """A reverse table slot's arrays, rev_batch's positional inputs: a table
+    slot's, with each item's window base (B,) int32 and reversed-contig
+    window (B, max_seq) uint8 after its position."""
+    table = _slot_arrays(d, bcfg, bs)
     rev = (
-        torch.from_numpy(_grab(d.win_base, bs, 0)).to(device),
-        torch.from_numpy(_grab(d.contig_win, bs, bcfg.max_seq, np.uint8)).to(device),
+        _grab(d.win_base, bs, 0),
+        _grab(d.contig_win, bs, bcfg.max_seq, np.uint8),
     )
     return table[:4] + rev + table[4:]
 
 
-def _resident_slot_tensors(d, bcfg, bs: int, device, goff: np.ndarray
-                           ) -> tuple[torch.Tensor, ...]:
-    """A resident slot's arrays as fwd_batch_resident's positional tensors
-    (without the genome) on ``device``.
+def _resident_slot_arrays(d, bcfg, bs: int, goff: np.ndarray
+                          ) -> tuple[np.ndarray, ...]:
+    """A resident slot's arrays, fwd_batch_resident's positional inputs
+    without the genome.
 
     A resident slot has no ref-window or read tables (null pointers); its
     packed read rows and reference chromosome index are read instead, and
@@ -514,11 +523,10 @@ def _resident_slot_tensors(d, bcfg, bs: int, device, goff: np.ndarray
     ref_base = _grab(d.ref_base, bs, 0)
     ref_chrom = _grab(d.ref_chrom, bs, 0)
     g_sb, g_off = split_global_base(goff[ref_chrom] + ref_base.astype(np.int64))
-    arrays = _cigar_arrays(d, bcfg, bs) + (
+    return _cigar_arrays(d, bcfg, bs) + (
         g_sb, g_off, ref_base,
         _grab(d.read_packed, bs, (bcfg.max_seq + 1) // 2, np.uint8),
     )
-    return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
 def host_shift_routing() -> bool:
@@ -589,7 +597,11 @@ def scan_and_remap_reads_native(
     cram_reference=None,
     shard_plan=None,
 ) -> dict:
-    """Native-feed phase 2 on ``device``; returns the stats dict.
+    """Native-feed phase 2 on ``device``; returns the stats dict, which it
+    also leaves in the module's ``_last_stats``: the JAX package's keys (the
+    item counts, ``t_prep``, ``t_dev`` and ``t_post`` in seconds, and under
+    ``PTPU_FEED_TIMING`` the scanner's ``t_native_<phase>``) and the port's
+    own (slot mode, H2D bytes, kernel launches, shards).
 
     Raises RuntimeError when the native library is unavailable.  CRAM input
     streams directly: a producer thread decodes records and pushes
@@ -621,17 +633,28 @@ def scan_and_remap_reads_native(
             f"{os.environ['PTPU_HOST_SHIFT']}): reverse-contig batches run "
             "rev_batch; table slots"
         )
-    genome = res_goff = None
+    # Data parallelism over the local devices (PTPU_SHARD=1): each batch
+    # splits on dim 0 over the mesh, with no collectives.  Only local
+    # devices: each host feeds its own batches.  Without it the mesh is
+    # ``device`` alone.
+    mesh = sharding_mesh(device, batch_size)
+    if mesh is not None:
+        logger.info(f"Sharding batches over {len(mesh)} local devices")
+    mesh = mesh or [torch.device(device)]
+    genomes = res_goff = None
     if resident:
-        # the genome goes to the device once and stays there for the run
+        # the genome goes to the device once and stays there for the run;
+        # under sharding, once to each distinct device of the mesh
         t0 = time.perf_counter()
         words, res_goff = build_global_ref(reference)
         t1 = time.perf_counter()
-        genome = genome_tensor(words, device)
-        if genome.is_cuda:
-            torch.cuda.synchronize(device)
+        genomes = replicate(mesh, words)
+        for g in genomes:
+            if g.is_cuda:
+                torch.cuda.synchronize(g.device)
         logger.info(
-            f"Resident genome: {words.nbytes / 2**20:.1f} MiB on {device} "
+            f"Resident genome: {words.nbytes / 2**20:.1f} MiB on "
+            f"{', '.join(sorted({str(g.device) for g in genomes}))} "
             f"(built in {t1 - t0:.2f} s, uploaded in "
             f"{time.perf_counter() - t1:.2f} s); packed read rows"
         )
@@ -699,6 +722,7 @@ def scan_and_remap_reads_native(
     def dispatch(d):
         nonlocal h2d_bytes, h2d_rev, n_rev
         bcfg = buckets[int(d.bucket)]
+        kw = bucket_kwargs(bcfg)
         # fixed shape: slots are always batch_size rows (EOF partials are
         # pre-padded by the C++ side)
         if d.is_rev:
@@ -706,14 +730,16 @@ def scan_and_remap_reads_native(
                 raise RuntimeError(
                     "native feed emitted a reverse batch in resident slot mode"
                 )
-            args = _rev_slot_tensors(d, bcfg, batch_size, device)
-            out = rev_batch(*args, **bucket_kwargs(bcfg))
+            args = _rev_slot_arrays(d, bcfg, batch_size)
+            out = make_sharded_rev_step(mesh, **kw)(*args)
         elif resident:
-            args = _resident_slot_tensors(d, bcfg, batch_size, device, res_goff)
-            out = fwd_batch_resident(*args, genome, **bucket_kwargs(bcfg))
+            args = _resident_slot_arrays(d, bcfg, batch_size, res_goff)
+            out = make_sharded_fwd_resident_step(mesh, **kw)(*args, genomes)
         else:
-            args = _slot_tensors(d, bcfg, batch_size, device)
-            out = fwd_batch(*args, **bucket_kwargs(bcfg))
+            args = _slot_arrays(d, bcfg, batch_size)
+            out = make_sharded_fwd_step(mesh, **kw)(*args)
+        # each shard's H2D copy is a pageable copy that has consumed the slot
+        # when it returns; the genome stays where it is
         nbytes = sum(a.nbytes for a in args)
         h2d_bytes += nbytes
         if d.is_rev:
@@ -803,6 +829,7 @@ def scan_and_remap_reads_native(
         "kernel_launches": {
             k: v - launches_before[k] for k, v in _cuda.launch_counts.items()
         },
+        "shards": len(mesh),
     }
     logger.info(
         f"Lifted {stats['n_primary']} primary reads: "
@@ -826,4 +853,11 @@ def scan_and_remap_reads_native(
             "native phase split: "
             + ", ".join(f"{n} {v / 1e9:.3f}s" for n, v in zip(names, timing_buf))
         )
+        for i, n in enumerate(names):
+            stats[f"t_native_{n}"] = timing_buf[i] / 1e9
+    stats["t_prep"] = t_prep
+    stats["t_dev"] = t_dev
+    stats["t_post"] = t_post
+    global _last_stats
+    _last_stats = stats
     return stats

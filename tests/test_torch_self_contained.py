@@ -70,7 +70,7 @@ COPIED = (
     "ops/shift.py", "ops/simplify.py",
     "utils/__init__.py", "utils/chrom_list.py", "utils/genome_segment.py",
     "utils/int_range.py", "utils/progress.py", "utils/regions.py",
-    "tools/merge.py",
+    "tools/merge.py", "tools/view.py", "tools/index.py", "tools/sort.py",
     "pipeline/contig_scan.py", "pipeline/read_scan.py",
     "pipeline/split_read.py",
     "testutil/simulate.py",
