@@ -35,6 +35,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    times per batch, ms/batch and device time beside the single-device
    step's; and ``graft_entry``: ``entry()`` on the card equal to
    ``entry(device="cpu")``, ``dryrun_multichip`` on the same mesh.
+4b. spill  -- the spill path's steps at B=512: ~20 kb items at 129-256 ops
+   in the mid bucket and 25-60 kb items in the wide bucket
+   (``testutil/spill.spill_jobs``).  Per bucket
+   the table, resident (items placed in a 3.1 GB genome) and reverse steps
+   (window base 0 and moved bases) on the card: every unflagged item equal
+   to the exact C++ core (``ops/native_core.py``), the resident step equal
+   to the table step, the first 64 rows equal to the CPU plain steps; H2D
+   bytes per batch against the slot shapes (``SPILL_H2D``), ms/batch, device
+   time and kernels, each hand kernel's ms per call inside the step,
+   launches, fallbacks and peak memory.  Then the hostile-rate fuzz of the
+   small bucket on the card (seeds 0-3 and the cluster-overflow item).
 5. e2e     -- the CLI (``python -m portello_tpu_torch.main --device cuda``)
    on the 18 kb bench scenario: the native feed in resident slot mode (the
    default), on table slots (``PTPU_RESIDENT=0``), under device-shift
@@ -55,7 +66,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    whose Chrome trace must name kernels 1 and 3.  Each run's merged records
    must equal the host path's, and each worker's and host's log must show
    launches of kernels 1 and 3.
+5b. spill e2e -- ``--device cuda`` on the WGS-shaped scenario
+   (``testutil/spill.build_scenario``: 2-60 kb reads) on the native feed in
+   resident and table slots and under device-shift routing, and on the
+   Python feed (each with batches in all three buckets and host items), on
+   the fallback reads of ``testutil/spill.build_inputs`` under both
+   routings (a flagged item under device shift), and on the 18 kb scenario
+   with CRAM 3.1 input, ``--target-region`` on BAM and on CRAM 3.1; each
+   run's records equal to the port's ``--device host`` (a CRAM run's with
+   ``=``/``X`` written as ``M``), its H2D bytes those of its buckets' slots.
 
+Phases 4b, 5 and 5b's inputs (the spill items and both scenarios) build in
+spawned worker processes during phase 2 and phase 4's batch, before anything
+is timed (``start_inputs``); the ``--device host`` references run one at a
+time in phases 5 and 5b, each wall logged alone.
 Imports nothing of JAX.  The last line of stdout is the JSON device record.
 """
 
@@ -111,6 +135,31 @@ PATH_KERNELS = {
     "workers": ("cleanup_and_compress", "window_match"),
     "hosts": ("cleanup_and_compress", "window_match"),
     "profile": ("cleanup_and_compress", "window_match"),
+    # phase 4b's steps in the mid and wide buckets
+    "spill_table": ("cleanup_and_compress", "match_run"),
+    "spill_resident": ("cleanup_and_compress", "window_match"),
+    "spill_rev": ("cleanup_and_compress", "match_run"),
+    # phase 5b's runs: the WGS-shaped scenario on both feeds, slot modes and
+    # routings, the fallback reads, CRAM and --target-region inputs
+    "wgs_resident": ("cleanup_and_compress", "window_match"),
+    "wgs_table": ("cleanup_and_compress", "match_run"),
+    "wgs_devshift": ("cleanup_and_compress", "match_run"),
+    "wgs_python": ("cleanup_and_compress", "match_run"),
+    "fallback": ("cleanup_and_compress", "window_match"),
+    "fallback_devshift": ("cleanup_and_compress", "match_run"),
+    "cram": ("cleanup_and_compress", "window_match"),
+    "region_bam": ("cleanup_and_compress", "window_match"),
+    "region_cram": ("cleanup_and_compress", "window_match"),
+}
+
+# Phase 4b's buckets by index in DEFAULT_BUCKETS, and the H2D bytes of one
+# B=512 slot of each kind in each bucket: what the slot shapes give, and
+# what the native feed's log must show (phase 5b).
+SPILL_BUCKETS = {1: "mid", 2: "wide"}
+SPILL_H2D = {
+    0: {"table": 25_894_912, "resident": 7_024_640, "rev": 38_479_872},
+    1: {"table": 26_615_808, "resident": 7_745_536, "rev": 39_200_768},
+    2: {"table": 72_884_224, "resident": 22_556_672, "rev": 106_440_704},
 }
 
 
@@ -252,18 +301,35 @@ def phase_device():
 
 # ---------------------------------------------------------------- phase 2
 def phase_build():
-    from portello_tpu_torch.pipeline.native_feed import build_error, get_lib
+    """The CUDA kernels (nvcc), the native scanner and the exact C++ core
+    (g++), all three builds at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from portello_tpu_torch.kernels import _cuda
+    from portello_tpu_torch.ops import native_core
+    from portello_tpu_torch.pipeline import native_feed
 
     t0 = time.perf_counter()
-    _cuda.get_lib()
-    log(f"build: CUDA kernels {_cuda.build_seconds:.1f} s (nvcc "
-        f"{' '.join(_cuda.NVCC_FLAGS[:2])}) -> {os.path.relpath(_cuda.SO_PATH, HERE)}")
-    t1 = time.perf_counter()
-    lib = get_lib()
-    require(lib is not None, f"native scanner (ptscan) build failed: {build_error()}")
-    log(f"build: native scanner ready in {time.perf_counter() - t1:.1f} s; "
-        f"total {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(3) as ex:
+        done = {}
+
+        def timed(name, fn):
+            fn()
+            done[name] = time.perf_counter() - t0
+
+        futures = [ex.submit(timed, "CUDA kernels", _cuda.get_lib),
+                   ex.submit(timed, "ptscan", native_feed.get_lib),
+                   ex.submit(timed, "ptcore", native_core.get_lib)]
+        for f in futures:
+            f.result()
+    require(native_feed.get_lib() is not None,
+            f"native scanner (ptscan) build failed: {native_feed.build_error()}")
+    require(native_core.get_lib() is not None,
+            f"C++ core (ptcore) build failed: {native_core.build_error()}")
+    log(f"build: CUDA kernels (nvcc {' '.join(_cuda.NVCC_FLAGS[:2])}) -> "
+        f"{os.path.relpath(_cuda.SO_PATH, HERE)}, the native scanner and the "
+        f"C++ core built at once: ready after " + ", ".join(
+            f"{name} {sec:.1f} s" for name, sec in done.items()))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1112,6 +1178,195 @@ def phase_sharded(genome_np, kw, args, single, launches, times, smi):
         f"{time.perf_counter() - t0:.2f} s")
 
 
+# --------------------------------------------------------------- phase 4b
+def _rows(out: dict, n: int) -> dict:
+    return {k: v[:n] for k, v in out.items()}
+
+
+def _native_text(counters) -> str:
+    return (f"{counters['exact']} exact, {counters['fallback']} flagged, "
+            f"{counters['unmapped']} unmapped")
+
+
+def phase_spill_steps(smi, batches):
+    """The three steps at B=512 in the mid and wide buckets on the card (on
+    ``batches``: each bucket's ``rev_batch`` inputs, by bucket index),
+    each unflagged item against the exact C++ core, the resident step
+    against the table step, the first 64 rows against the CPU plain step;
+    timed, profiled and counted.  Then the hostile-rate fuzz on the card.
+    Returns (launches per batch, in-step kernel times), by
+    ``<bucket>_<step>``."""
+    import numpy as np
+    import torch
+
+    from portello_tpu_torch.graft_entry import require_equal
+    from portello_tpu_torch.kernels import _cuda
+    from portello_tpu_torch.kernels.resident import genome_tensor
+    from portello_tpu_torch.models.pipeline_model import (
+        DEFAULT_BUCKETS,
+        batch_from_numpy,
+        bucket_kwargs,
+        fwd_batch,
+        fwd_batch_resident,
+        resident_batch_from_numpy,
+        rev_batch,
+        rev_batch_from_numpy,
+    )
+    from portello_tpu_torch.testutil import spill
+    from portello_tpu_torch.testutil.batchgen import (
+        resident_from_table,
+        shift_win_base,
+    )
+
+    cuda = torch.device("cuda")
+    b = 512
+    rng = np.random.default_rng(SEED + 4)
+    launches, in_step = {}, {}
+    for bi, rev_arrays in batches.items():
+        name = SPILL_BUCKETS[bi]
+        bcfg = DEFAULT_BUCKETS[bi]
+        kw = bucket_kwargs(bcfg)
+        arrays = spill.fwd_of_rev(rev_arrays)
+        n_ops = rev_arrays[2]
+        read_len = (rev_arrays[11] != 0).sum(axis=1)
+        t0 = time.perf_counter()
+        g_sb, g_off, packed, genome_np = resident_from_table(
+            arrays, GENOME_BYTES, rng)
+        res_arrays = tuple(arrays[:7]) + (g_sb, g_off, arrays[8], packed)
+        genome = genome_tensor(genome_np, cuda)
+        moved_arrays, moved = shift_win_base(rev_arrays, rng)
+        torch.cuda.synchronize()
+        log(f"spill {name} bucket {bcfg}: {b} items, reads "
+            f"{int(read_len.min())}-{int(read_len.max())} bases, "
+            f"{int(n_ops.min())}-{int(n_ops.max())} ops (mean "
+            f"{float(n_ops.mean()):.1f}); placed in a {genome_np.shape[0]} "
+            f"byte genome on the card in {time.perf_counter() - t0:.1f} s")
+        args = {
+            "table": batch_from_numpy(arrays, cuda),
+            "resident": resident_batch_from_numpy(res_arrays, cuda),
+            "rev": rev_batch_from_numpy(rev_arrays, cuda),
+        }
+        steps = {
+            "table": lambda: fwd_batch(*args["table"], **kw),
+            "resident": lambda: fwd_batch_resident(*args["resident"], genome,
+                                                   **kw),
+            "rev": lambda: rev_batch(*args["rev"], **kw),
+        }
+        outs = {}
+        for mode, step in steps.items():
+            path = f"spill_{mode}"
+            _cuda.reset_launch_counts()
+            outs[mode] = step()
+            torch.cuda.synchronize()
+            launches[f"{name}_{mode}"] = dict(_cuda.launch_counts)
+            require_launches(launches[f"{name}_{mode}"], path,
+                             f"spill {name} {mode} step")
+            h2d = sum(t.nbytes for t in args[mode])
+            require(h2d == SPILL_H2D[bi][mode],
+                    f"spill {name} {mode}: {h2d} H2D bytes per batch, want "
+                    f"{SPILL_H2D[bi][mode]}")
+        moved_out = rev_batch(*rev_batch_from_numpy(moved_arrays, cuda), **kw)
+        torch.cuda.synchronize()
+
+        # every unflagged item against the exact C++ core
+        t0 = time.perf_counter()
+        counts = {}
+        for mode, out, args_np, rev in (
+            ("table", outs["table"], arrays, False),
+            ("rev", outs["rev"], rev_arrays, True),
+            ("rev moved", moved_out, moved_arrays, True),
+        ):
+            counts[mode] = spill.new_counters()
+            spill.check_native(out, args_np, kw["max_out"], counts[mode],
+                               rev=rev, what=f"spill {name} {mode} step")
+            require(counts[mode]["exact"] > 0,
+                    f"spill {name} {mode}: no exact item ({counts[mode]})")
+        native_s = time.perf_counter() - t0
+        require_equal(outs["resident"], outs["table"],
+                      f"spill {name} resident step vs table step (CUDA)")
+
+        # the first 64 rows against the CPU plain step (items are independent)
+        t0 = time.perf_counter()
+        k = 64
+        cpu_out = {
+            "table": fwd_batch(*batch_from_numpy(
+                tuple(a[:k] for a in arrays), "cpu"), **kw),
+            "resident": fwd_batch_resident(
+                *resident_batch_from_numpy(tuple(a[:k] for a in res_arrays),
+                                           "cpu"),
+                genome_tensor(genome_np, "cpu"), **kw),
+            "rev": rev_batch(*rev_batch_from_numpy(
+                tuple(a[:k] for a in rev_arrays), "cpu"), **kw),
+        }
+        moved_cpu = rev_batch(*rev_batch_from_numpy(
+            tuple(a[:k] for a in moved_arrays), "cpu"), **kw)
+        cpu_s = time.perf_counter() - t0
+        for mode, want in cpu_out.items():
+            require_equal(_rows(outs[mode], k), want,
+                          f"spill {name} {mode} step rows 0-{k - 1} CUDA vs CPU")
+        require_equal(_rows(moved_out, k), moved_cpu,
+                      f"spill {name} reverse step at moved bases rows "
+                      f"0-{k - 1} CUDA vs CPU")
+        log(f"spill {name} B={b} K_lift={2 * kw['max_rows']} max_out="
+            f"{kw['max_out']} C={kw['max_clusters']}: every unflagged item "
+            f"== the C++ core (ptcore, {native_s:.1f} s): table "
+            f"{_native_text(counts['table'])}; reverse at base 0 "
+            f"{_native_text(counts['rev'])}; reverse with "
+            f"{int(moved.sum())} items at bases up to "
+            f"{int(moved_arrays[4].max())} {_native_text(counts['rev moved'])}"
+            f"; resident step == table step on all {len(outs['table'])} "
+            f"fields; rows 0-{k - 1} of all four == the CPU plain steps "
+            f"({cpu_s:.1f} s); launches per batch {json.dumps({m: launches[f'{name}_{m}'] for m in steps})}")
+
+        times = {mode: [] for mode in steps}
+        for mode in STEP_ORDER:
+            times[mode].append(_step_times(steps[mode], b,
+                                           f"spill {name} {mode} step"))
+        for mode, step in steps.items():
+            key = f"{name}_{mode}"
+            in_step[key] = _kernels_in_step(step)
+            for kname in PATH_KERNELS[f"spill_{mode}"]:
+                require(kname in in_step[key],
+                        f"spill {name} {mode}: the profile names no {kname}")
+            before = torch.cuda.memory_allocated(cuda)
+            peak = _peak_bytes(step, [cuda])
+            log(f"spill {name} {mode} step ({smi}): ms/batch (host clock + "
+                f"sync) " + " / ".join(f"{t[0]:.3f}" for t in times[mode])
+                + "; device time " + " / ".join(f"{t[1]:.3f}" for t in times[mode])
+                + f" ms in {times[mode][0][2]:.0f} device kernels and copies"
+                f"; H2D {SPILL_H2D[bi][mode]} bytes/batch; fallback "
+                f"{int(outs[mode]['fallback'].sum())} of {b}; peak "
+                f"{peak} bytes allocated ({peak - before} above the "
+                f"{before} held: genome and inputs); hand kernels in the "
+                f"step: " + "; ".join(
+                    f"{kn} {ms:.4f} ms per call, {n:.0f} calls per step"
+                    for kn, (ms, n) in in_step[key].items()))
+        del genome, args, steps, outs, moved_out
+        torch.cuda.empty_cache()
+
+    # the hostile-rate fuzz of the small bucket on the card
+    t0 = time.perf_counter()
+    counters = spill.new_counters()
+    for seed in range(4):
+        spill.hostile_rounds(seed, cuda, counters)
+    ovf = spill.cluster_overflow_batch()
+    out = fwd_batch(*batch_from_numpy(ovf, cuda), **spill.KW)
+    ovf_counts = spill.new_counters()
+    spill.check_batch(out, ovf, spill.expect_fwd, ovf_counts,
+                      "cluster overflow")
+    require(bool(out["fallback"][0]) and ovf_counts["exact"] > 0,
+            f"cluster-overflow item: flagged {bool(out['fallback'][0])}, "
+            f"{ovf_counts}")
+    require(counters["exact"] > 0 and counters["fallback"] > 0,
+            f"hostile fuzz on the card saw {counters}")
+    log(f"spill: hostile-rate fuzz (seeds 0-3, small bucket, fwd / "
+        f"resident / rev on the card, each unflagged item == the numpy "
+        f"oracle == the C++ core): {_native_text(counters)}, 0 wrong; "
+        f"cluster-overflow item flagged, {ovf_counts['exact']} exact "
+        f"beside it; {time.perf_counter() - t0:.1f} s")
+    return launches, in_step
+
+
 # ---------------------------------------------------------------- phase 5
 _LIFTED = re.compile(
     r"Lifted (\d+) primary reads: (\d+) device work items, (\d+) host items "
@@ -1122,24 +1377,22 @@ _TIMING_LINES = ("feed timing:", "native phase split:", "Total Runtime:",
                  "Resident genome:")
 
 
-def _sam_records(path):
-    from portello_tpu_torch.io.bam import BamReader
-
-    with BamReader(path) as r:
-        return sorted(rec.to_sam(r.header) for rec in r)
+# A scenario's contig BAM, read BAM (or CRAM) and reference FASTA.
+INPUTS = ("asm_to_ref.bam", "read_to_asm.bam", "ref.fa")
 
 
-def _cli_cmd(module, d, tag, device, extra=(), env_extra=None):
-    """The command line and environment of one CLI run on scenario ``d``."""
+def _cli_cmd(module, d, tag, device, extra=(), env_extra=None, inputs=INPUTS):
+    """The command line and environment of one CLI run on scenario ``d``
+    (its ``inputs``, by name in ``d`` or by path)."""
     env = dict(os.environ, PTPU_FEED_TIMING="1", **(env_extra or {}))
     env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [
         sys.executable, "-m", module,
-        "--assembly-to-ref", os.path.join(d, "asm_to_ref.bam"),
-        "--read-to-assembly", os.path.join(d, "read_to_asm.bam"),
+        "--assembly-to-ref", os.path.join(d, inputs[0]),
+        "--read-to-assembly", os.path.join(d, inputs[1]),
         "--remapped-read-output", os.path.join(d, f"remapped_{tag}.bam"),
         "--unassembled-read-output", os.path.join(d, f"un_{tag}.bam"),
-        "--ref", os.path.join(d, "ref.fa"), "--device", device, *extra,
+        "--ref", os.path.join(d, inputs[2]), "--device", device, *extra,
     ]
     return cmd, env
 
@@ -1167,15 +1420,32 @@ def _finish(p, what, timeout=600):
     return err
 
 
-def _cli(module, d, tag, device, extra=(), env_extra=None):
+def _finish_all(procs) -> list:
+    """``_finish`` for each (process, what) pair, in order; if one fails,
+    the others' process groups are killed too.  Returns their stderrs."""
+    try:
+        return [_finish(p, what) for p, what in procs]
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                p.wait()
+
+
+def _cli(module, d, tag, device, extra=(), env_extra=None, inputs=INPUTS):
     t0 = time.perf_counter()
-    err = _finish(_start(*_cli_cmd(module, d, tag, device, extra, env_extra)),
+    err = _finish(_start(*_cli_cmd(module, d, tag, device, extra, env_extra,
+                                   inputs)),
                   f"{module} --device {device} ({tag})")
     return time.perf_counter() - t0, err
 
 
 _H2D = re.compile(r"H2D per batch: (\d+) bytes \((\w+) slots, (\d+) batches, "
-                  r"rev_batches (\d+) of (\d+) bytes\)")
+                  r"rev_batches (\d+) of (\d+) bytes, batches per bucket "
+                  r"\[([\d, ]+)\]\)")
 _PYFEED = re.compile(r"Python feed: (\d+) device batches, rev_batches (\d+)")
 _SHARDING = re.compile(r"Sharding batches over (\d+) local devices")
 
@@ -1216,11 +1486,24 @@ def _feed_line(path, feed, err):
     return text
 
 
-def _same_records(d, tag, want, what):
+def _records(d, tag, cram=False):
+    """The sorted records of run ``tag`` in ``d``; with ``cram``, as a CRAM
+    input keeps them: ``=``/``X`` written as ``M``, unmapped MAPQ 0."""
+    from portello_tpu_torch.testutil.spill import sam_records
+
+    return {kind: sam_records(os.path.join(d, f"{kind}_{tag}.bam"),
+                              zero_unmapped_mapq=cram and kind == "un",
+                              collapse_eqx=cram)
+            for kind in ("remapped", "un")}
+
+
+def _same_records(d, tag, want, what, cram=False):
+    """Run ``tag``'s records in ``d`` (``_records``) equal ``want``."""
+    got = _records(d, tag, cram)
     for kind in ("remapped", "un"):
-        got = _sam_records(os.path.join(d, f"{kind}_{tag}.bam"))
-        require(got == want[kind], f"{what} {kind} records differ from "
-                f"--device host ({len(got)} vs {len(want[kind])} records)")
+        require(got[kind] == want[kind], f"{what} {kind} records differ from "
+                f"--device host ({len(got[kind])} vs {len(want[kind])} "
+                "records)")
 
 
 def _process_launches(errs, path, what):
@@ -1302,13 +1585,12 @@ def phase_scale_out(d, want, threads, smi):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     t0 = time.perf_counter()
-    procs = [
-        _start(*_cli_cmd(module, d, "hosts", "cuda", (
+    errs = _finish_all([
+        (_start(*_cli_cmd(module, d, "hosts", "cuda", (
             *feed, "--threads", half, "--num-hosts", "2", "--host-id", str(h),
-            "--coordinator", f"127.0.0.1:{port}")))
+            "--coordinator", f"127.0.0.1:{port}"))), f"e2e host {h}")
         for h in range(2)
-    ]
-    errs = [_finish(p, f"e2e host {h}") for h, p in enumerate(procs)]
+    ])
     wall = time.perf_counter() - t0
     for h, err in enumerate(errs):
         require(f"torch.distributed initialized: process {h}/2" in err,
@@ -1350,81 +1632,280 @@ def phase_scale_out(d, want, threads, smi):
     return runs
 
 
-def phase_e2e(smi):
+# Phase 5b's WGS-shaped scenario (testutil/spill.build_scenario, the shape of
+# scripts/soak_scale.py): this seed and read count put batches in all three
+# buckets and send items to the host.
+WGS_READS = 3000
+WGS_SEED = 2026
+# Phase 5b's runs on it: (path, --feed, environment).
+WGS_RUNS = (
+    ("wgs_resident", "native", {}),
+    ("wgs_table", "native", {"PTPU_RESIDENT": "0"}),
+    ("wgs_devshift", "native", {"PTPU_HOST_SHIFT": "0"}),
+    ("wgs_python", "python", {}),
+)
+
+
+def _spill_run(d, path, feed, env, want, threads, smi, inputs=INPUTS,
+               extra=(), cram=False):
+    """One phase-5b CLI run on ``--device cuda``: its sorted records equal
+    to ``want`` (the port's ``--device host`` run; for a CRAM input, with
+    ``=``/``X`` written as ``M`` and unmapped MAPQ 0 on both sides), its
+    launches those of ``path``; on the native feed, the H2D bytes per batch
+    those of its slots, bucket by bucket.  Returns (the item counts, the
+    batches per bucket or None, the launches)."""
+    wall, err = _cli("portello_tpu_torch.main", d, path, "cuda",
+                     ("--feed", feed, "--threads", threads, *extra), env,
+                     inputs)
+    m = _LIFTED.search(err)
+    lm = _LAUNCHES.search(err)
+    require(m is not None and lm is not None,
+            f"e2e {path}: the log lacks its stats lines:\n{err[-3000:]}")
+    launches = json.loads(lm.group(1))
+    require_launches(launches, path, f"e2e {path} run")
+    _same_records(d, path, want, f"e2e {path}", cram)
+    counts = dict(zip(("primary", "device", "host", "fallback"),
+                      map(int, m.groups())))
+    per_bucket = None
+    feed_text = ""
+    if feed == "native":
+        hm = _H2D.search(err)
+        require(hm is not None, f"e2e {path}: no H2D line:\n{err[-3000:]}")
+        per_bucket = [int(x) for x in hm.group(6).split(",")]
+        n_batches, n_rev = int(hm.group(3)), int(hm.group(4))
+        require(sum(per_bucket) == n_batches,
+                f"e2e {path}: batches per bucket {per_bucket}, {n_batches} "
+                f"batches")
+        if n_rev == 0:  # one slot kind: the mean follows from the buckets
+            mode = hm.group(2)
+            total = sum(n * SPILL_H2D[i][mode] for i, n in enumerate(per_bucket))
+            require(int(hm.group(1)) == total // n_batches,
+                    f"e2e {path}: {hm.group(1)} H2D bytes per batch, the "
+                    f"slots of {per_bucket} give {total // n_batches}")
+        feed_text = (f"; H2D {hm.group(1)} bytes/batch ({hm.group(2)} slots, "
+                     f"{n_batches} batches, per bucket {per_bucket}, "
+                     f"{n_rev} reverse of {hm.group(5)} bytes)")
+    else:
+        pm = _PYFEED.search(err)
+        require(pm is not None, f"e2e {path}: no Python feed line")
+        feed_text = f"; {pm.group(1)} device batches, {pm.group(2)} reverse"
+    _log_lines(err, path, _TIMING_LINES + ("peak device memory:",))
+    log(f"e2e {path} (--feed {feed}{''.join(f' {k}={v}' for k, v in env.items())}"
+        f"{''.join(' ' + a for a in extra)}): --device cuda output == "
+        f"--device host output ({len(want['remapped'])} remapped records); "
+        f"wall {wall:.2f} s for {counts['primary']} primary reads = "
+        f"{counts['primary'] / wall:.1f} reads/s ({smi}); device items "
+        f"{counts['device']}, host items {counts['host']}, fallbacks "
+        f"{counts['fallback']}{feed_text}; launches {json.dumps(launches)}")
+    return counts, per_bucket, launches
+
+
+# Phase 5b's --target-region runs: the first 108 kb of the bench scenario's
+# chr1 (200 kb), which holds some of its reads, not all.
+REGION = ("--target-region", "chr1:1-108000")
+
+
+def _clocked(fn, *args):
+    """Worker job: ``fn(*args)`` and the seconds it took, so that the inputs'
+    serial time can be logged beside the pool's wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return time.perf_counter() - t0, out
+
+
+def bench_job(d) -> str:
+    """Worker job: phase 5's bench scenario in ``d`` and a CRAM 3.1 copy of
+    its reads; returns the CRAM's path."""
     import numpy as np
-    import torch
 
     from portello_tpu_torch.testutil.simulate import make_scenario
+    from portello_tpu_torch.testutil.spill import write_crams
+
+    make_scenario(d, rng=np.random.default_rng(99), n_reads_per_contig=400,
+                  read_len=18000, chrom_len=200000)
+    return write_crams(os.path.join(d, INPUTS[1]), ("31",))["31"]
+
+
+def wgs_job(d) -> dict:
+    """Worker job: phase 5b's WGS-shaped scenario in ``d`` and the fallback
+    reads in ``d/fallback``."""
+    import numpy as np
+
+    from portello_tpu_torch.testutil.spill import build_inputs, build_scenario
+
+    n = build_scenario(d, WGS_READS, np.random.default_rng(WGS_SEED))
+    fb = os.path.join(d, "fallback")
+    os.makedirs(fb)
+    return {"n": n, "fallback": fb, "fallback_inputs": build_inputs(fb)}
+
+
+def _host_cli(module, d, tag, threads, extra=(), inputs=INPUTS) -> float:
+    """One ``--device host`` reference run, alone on the machine; logs and
+    returns its wall seconds."""
+    wall, _ = _cli(module, d, tag, "host", ("--threads", threads, *extra),
+                   None, inputs)
+    log(f"e2e: host-path CLI wall {wall:.2f} s ({module}, {tag} on "
+        f"{os.path.basename(d)}, --threads {threads})")
+    return wall
+
+
+def phase_spill_e2e(inputs, threads, smi):
+    """The spill path end to end on ``--device cuda``: the WGS-shaped
+    scenario on both feeds, both slot modes and both routings, the fallback
+    reads of ``testutil/spill.build_inputs`` under both routings, and CRAM
+    3.1 and ``REGION`` inputs on phase 5's bench scenario; each run's
+    records equal to the port's ``--device host``."""
+    runs = {}
+    d, d18 = inputs["wgs"], inputs["bench"]
+    module = "portello_tpu_torch.main"
+    _host_cli(module, d, "host", threads)
+    want = _records(d, "host")
+    for path, feed, env in WGS_RUNS:
+        counts, per_bucket, runs[path] = _spill_run(
+            d, path, feed, env, want, threads, smi)
+        require(counts["host"] > 0, f"e2e {path}: no host items")
+        if per_bucket is not None:
+            require(all(per_bucket),
+                    f"e2e {path}: batches per bucket {per_bucket}")
+
+    fb = inputs["fallback"]
+    _host_cli(module, fb, "host", threads, inputs=inputs["fallback_inputs"])
+    want = _records(fb, "host")
+    for path, env in (("fallback", {}),
+                      ("fallback_devshift", {"PTPU_HOST_SHIFT": "0"})):
+        counts, _, runs[path] = _spill_run(fb, path, "native", env, want,
+                                           threads, smi,
+                                           inputs["fallback_inputs"])
+        require(counts["host"] > 0, f"e2e {path}: no host items")
+    require(counts["fallback"] >= 1,
+            f"e2e fallback_devshift: {counts['fallback']} fallbacks")
+
+    cram_inputs = (INPUTS[0], inputs["cram"], INPUTS[2])
+    _host_cli(module, d18, "region_host", threads, REGION)
+    _, _, runs["cram"] = _spill_run(d18, "cram", "native", {},
+                                    _records(d18, "port_host", cram=True),
+                                    threads, smi, cram_inputs, cram=True)
+    _, _, runs["region_bam"] = _spill_run(d18, "region_bam", "native", {},
+                                          _records(d18, "region_host"),
+                                          threads, smi, extra=REGION)
+    _, _, runs["region_cram"] = _spill_run(
+        d18, "region_cram", "native", {},
+        _records(d18, "region_host", cram=True), threads, smi, cram_inputs,
+        extra=REGION, cram=True)
+    return runs
+
+
+def phase_e2e(smi, inputs):
+    """Phase 5 on the bench scenario, then phase 5b (``phase_spill_e2e``);
+    ``inputs`` holds both scenarios' directories (``start_inputs``)."""
+    import torch
 
     runs = {}
-    with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as d:
-        t0 = time.perf_counter()
-        make_scenario(d, rng=np.random.default_rng(99), n_reads_per_contig=400,
-                      read_len=18000, chrom_len=200000)
-        log(f"e2e: bench scenario (4 contigs x 400 reads x 18 kb) built in "
-            f"{time.perf_counter() - t0:.1f} s")
-        threads = str(os.cpu_count() or 1)
-        host_wall, _ = _cli("portello_tpu.main", d, "host", "host",
-                            ("--threads", threads))
-        want = {kind: _sam_records(os.path.join(d, f"{kind}_host.bam"))
-                for kind in ("remapped", "un")}
-        require(len(want["remapped"]) > 0, "e2e produced no remapped records")
-        # the port's own host path must equal the JAX package's, so every
-        # --device cuda run below equals both
-        port_host_wall, _ = _cli("portello_tpu_torch.main", d, "port_host",
-                                 "host", ("--threads", threads))
-        _same_records(d, "port_host", want, "e2e port --device host")
-        log(f"e2e: port --device host output == portello_tpu --device host "
-            f"output ({len(want['remapped'])} remapped records); walls "
-            f"{port_host_wall:.2f} s (port), {host_wall:.2f} s (portello_tpu)")
-        # Each CLI runs in its own process, whose launch counts start at 0;
-        # it logs the launches of its phase-2 run ("kernel launches: {...}").
-        for path, feed, env in E2E_RUNS:
-            wall, err = _cli("portello_tpu_torch.main", d, path, "cuda",
-                             ("--feed", feed, "--threads", threads), env)
-            m = _LIFTED.search(err)
-            lm = _LAUNCHES.search(err)
-            require(m is not None and lm is not None,
-                    f"port CLI log lacks its stats lines:\n{err[-3000:]}")
-            feed_text = _feed_line(path, feed, err)
-            # only PTPU_SHARD=1 shards, over every visible GPU; unset, the
-            # native feed of a multi-GPU machine says it uses one
-            sm = _SHARDING.search(err)
-            require((sm is not None) == ("PTPU_SHARD" in env),
-                    f"e2e {path}: Sharding line {'missing' if sm is None else 'present'}")
-            n_gpus = torch.cuda.device_count()
-            if feed == "native" and sm is None and n_gpus > 1:
-                require(f"{n_gpus} local GPUs visible; batches run on" in err,
-                        f"e2e {path}: no line saying {n_gpus} GPUs are visible")
-                feed_text += f"; one GPU of {n_gpus} (PTPU_SHARD unset)"
-            if sm is not None:
-                n_shards = int(sm.group(1))
-                require(n_shards == torch.cuda.device_count(),
-                        f"e2e {path}: {n_shards} shards on "
-                        f"{torch.cuda.device_count()} GPUs")
-                feed_text += (f"; sharded over {n_shards} local devices" + (
-                    " (a one-shard mesh on this one-GPU machine: phase 4 "
-                    "runs two shards on one card)" if n_shards == 1 else ""))
-            launches = json.loads(lm.group(1))
-            require_launches(launches, path, f"e2e {path} run")
-            _log_lines(err, path, _TIMING_LINES)
-            for kind in ("remapped", "un"):
-                got = _sam_records(os.path.join(d, f"{kind}_{path}.bam"))
-                require(got == want[kind], f"e2e {path} {kind} records "
-                        f"differ from --device host ({len(got)} vs "
-                        f"{len(want[kind])} records)")
-            n_primary, dev_items, host_items, fb_items = map(int, m.groups())
-            log(f"e2e {path} (--feed {feed}{''.join(f' {k}={v}' for k, v in env.items())}"
-                f"): --device cuda output == --device host output "
-                f"({len(want['remapped'])} remapped records, sorted SAM); "
-                f"port CLI wall {wall:.2f} s for {n_primary} primary reads = "
-                f"{n_primary / wall:.1f} reads/s (whole process); device "
-                f"items {dev_items}, host items {host_items}, fallbacks "
-                f"{fb_items}; {feed_text}; launches {json.dumps(launches)}")
-            runs[path] = launches
-        runs.update(phase_scale_out(d, want, threads, smi))
-    log(f"e2e: host-path CLI wall {host_wall:.2f} s")
+    d = inputs["bench"]
+    threads = str(os.cpu_count() or 1)
+    # the port's host path must equal the JAX package's, so every --device
+    # cuda run below equals both
+    _host_cli("portello_tpu.main", d, "host", threads)
+    _host_cli("portello_tpu_torch.main", d, "port_host", threads)
+    want = _records(d, "host")
+    require(len(want["remapped"]) > 0, "e2e produced no remapped records")
+    _same_records(d, "port_host", want, "e2e port --device host")
+    log(f"e2e: port --device host output == portello_tpu --device host "
+        f"output ({len(want['remapped'])} remapped records)")
+    # Each CLI runs in its own process, whose launch counts start at 0;
+    # it logs the launches of its phase-2 run ("kernel launches: {...}").
+    for path, feed, env in E2E_RUNS:
+        wall, err = _cli("portello_tpu_torch.main", d, path, "cuda",
+                         ("--feed", feed, "--threads", threads), env)
+        m = _LIFTED.search(err)
+        lm = _LAUNCHES.search(err)
+        require(m is not None and lm is not None,
+                f"port CLI log lacks its stats lines:\n{err[-3000:]}")
+        feed_text = _feed_line(path, feed, err)
+        # only PTPU_SHARD=1 shards, over every visible GPU; unset, the
+        # native feed of a multi-GPU machine says it uses one
+        sm = _SHARDING.search(err)
+        require((sm is not None) == ("PTPU_SHARD" in env),
+                f"e2e {path}: Sharding line {'missing' if sm is None else 'present'}")
+        n_gpus = torch.cuda.device_count()
+        if feed == "native" and sm is None and n_gpus > 1:
+            require(f"{n_gpus} local GPUs visible; batches run on" in err,
+                    f"e2e {path}: no line saying {n_gpus} GPUs are visible")
+            feed_text += f"; one GPU of {n_gpus} (PTPU_SHARD unset)"
+        if sm is not None:
+            n_shards = int(sm.group(1))
+            require(n_shards == torch.cuda.device_count(),
+                    f"e2e {path}: {n_shards} shards on "
+                    f"{torch.cuda.device_count()} GPUs")
+            feed_text += (f"; sharded over {n_shards} local devices" + (
+                " (a one-shard mesh on this one-GPU machine: phase 4 "
+                "runs two shards on one card)" if n_shards == 1 else ""))
+        launches = json.loads(lm.group(1))
+        require_launches(launches, path, f"e2e {path} run")
+        _log_lines(err, path, _TIMING_LINES)
+        _same_records(d, path, want, f"e2e {path}")
+        n_primary, dev_items, host_items, fb_items = map(int, m.groups())
+        log(f"e2e {path} (--feed {feed}{''.join(f' {k}={v}' for k, v in env.items())}"
+            f"): --device cuda output == --device host output "
+            f"({len(want['remapped'])} remapped records, sorted SAM); "
+            f"port CLI wall {wall:.2f} s for {n_primary} primary reads = "
+            f"{n_primary / wall:.1f} reads/s (whole process); device "
+            f"items {dev_items}, host items {host_items}, fallbacks "
+            f"{fb_items}; {feed_text}; launches {json.dumps(launches)}")
+        runs[path] = launches
+    runs.update(phase_scale_out(d, want, threads, smi))
+    t0 = time.perf_counter()
+    runs.update(phase_spill_e2e(inputs, threads, smi))
+    log(f"e2e spill: phase 5b took {time.perf_counter() - t0:.1f} s")
     return runs
+
+
+def start_inputs(pool, work) -> dict:
+    """Submit to ``pool`` what phases 4b, 5 and 5b build on the CPU, so that
+    it builds while the kernels do: the mid- and wide-bucket items
+    (``testutil/spill.spill_jobs``), and in directories under ``work`` the
+    bench scenario with its CRAM copy and the WGS-shaped one with the
+    fallback reads (``bench_job``, ``wgs_job``).  ``take_inputs`` collects
+    them."""
+    from portello_tpu_torch.testutil import spill
+
+    dirs = {name: os.path.join(work, name) for name in ("bench", "wgs")}
+    for d in dirs.values():
+        os.makedirs(d)
+    return {
+        "bench": pool.submit(_clocked, bench_job, dirs["bench"]),
+        "wgs": pool.submit(_clocked, wgs_job, dirs["wgs"]),
+        "spill": {bi: [pool.submit(_clocked, spill.make_chunk, job)
+                       for job in spill.spill_jobs(SEED + 40 + bi, 512, bi)]
+                  for bi in SPILL_BUCKETS},
+        "dirs": dirs, "t0": time.perf_counter(),
+    }
+
+
+def take_inputs(pending) -> dict:
+    """Wait for ``start_inputs``' work; returns the spill batches by bucket,
+    the scenarios' directories, the fallback reads' inputs and the CRAM
+    copy of the bench reads."""
+    from portello_tpu_torch.testutil.spill import concat_batches
+
+    spill_s, batches = 0.0, {}
+    for bi, futures in pending["spill"].items():
+        chunks = [f.result() for f in futures]
+        spill_s += sum(t for t, _ in chunks)
+        batches[bi] = concat_batches(c for _, c in chunks)
+    bench_s, cram = pending["bench"].result()
+    wgs_s, wgs = pending["wgs"].result()
+    log(f"inputs, built in worker processes beside phases 2 and 4's batch, "
+        f"all in {time.perf_counter() - pending['t0']:.1f} s of wall time; "
+        f"{spill_s + bench_s + wgs_s:.1f} s one after another: 512 mid-bucket "
+        f"and 512 wide-bucket items (make_item_arrays) {spill_s:.1f} s, the "
+        f"bench scenario (4 contigs x 400 reads x 18 kb) and its CRAM 3.1 "
+        f"copy {bench_s:.1f} s, the WGS-shaped scenario ({wgs['n']} reads of "
+        f"2-60 kb, an indel per ~150 bp, 3 contigs on 3 + 1.5 Mbp) and the "
+        f"fallback reads {wgs_s:.1f} s")
+    return {"spill": batches, **pending["dirs"], "cram": cram,
+            "fallback": wgs["fallback"],
+            "fallback_inputs": wgs["fallback_inputs"]}
 
 
 def main() -> int:
@@ -1438,19 +1919,33 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    t_start = time.perf_counter()
     try:
         import numpy as np
 
+        from portello_tpu_torch.testutil.spill import item_pool
+
         name, smi_line = phase_device()
-        phase_build()
-        rng = np.random.default_rng(SEED)
-        rev_arrays = hifi_batch(rng)
-        kres = phase_kernels(rng, rev_arrays)
-        step_launches, in_step = phase_forward(rng, rev_arrays, smi_line)
-        e2e = phase_e2e(smi_line)
+        with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as work:
+            # six workers build phases 4b, 5 and 5b's inputs during phase 2
+            # and the HiFi batch, and are gone before anything is timed
+            with item_pool(6) as pool:
+                pending = start_inputs(pool, work)
+                phase_build()
+                rng = np.random.default_rng(SEED)
+                rev_arrays = hifi_batch(rng)
+                inputs = take_inputs(pending)
+            kres = phase_kernels(rng, rev_arrays)
+            step_launches, in_step = phase_forward(rng, rev_arrays, smi_line)
+            t0 = time.perf_counter()
+            spill_launches, spill_in_step = phase_spill_steps(
+                smi_line, inputs["spill"])
+            log(f"spill: phase 4b took {time.perf_counter() - t0:.1f} s")
+            e2e = phase_e2e(smi_line, inputs)
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "portello_tpu")]
         require(not leaked, f"imported {leaked[:5]}")
+        log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     except Exception as e:  # every phase failure ends the run non-zero
         import traceback
 
@@ -1463,7 +1958,9 @@ def main() -> int:
     # ms/plain_ms/bytes: phase 3's main-path shape of each kernel (kernel 1 at
     # the lift site, K=352; kernels 2 and 3 at C=96); launches_per_batch:
     # one resident step's (the main path's: 0 for match_run); step_ms: device
-    # time per call inside the resident step (match_run: the table step).
+    # time per call inside the resident step (match_run: the table step);
+    # spill_launches_per_batch and spill_step_ms: the same for each of phase
+    # 4b's steps, by <bucket>_<step>.
     specs = (
         ("cleanup_and_compress", "compress.cu",
          "compress_pallas.py:124", "resident"),
@@ -1487,6 +1984,11 @@ def main() -> int:
             "launches_per_batch": step_launches["resident"][kernel],
             "step_ms": step[0] if step else None,
             "launches_by_path": {path: e2e[path][kernel] for path in e2e},
+            "spill_launches_per_batch": {
+                key: n.get(kernel, 0) for key, n in spill_launches.items()},
+            "spill_step_ms": {key: t[kernel][0]
+                              for key, t in spill_in_step.items()
+                              if kernel in t},
         })
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

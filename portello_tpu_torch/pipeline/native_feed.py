@@ -714,6 +714,7 @@ def scan_and_remap_reads_native(
     t_prep = t_dev = t_post = 0.0
     n_batches = n_rev = 0
     h2d_bytes = h2d_rev = 0
+    per_bucket = [0] * len(buckets)
     launches_before = dict(_cuda.launch_counts)
     # Up to 2 dispatched batches outstanding; post_results resolves batches
     # in emission order (the C++ side queues them FIFO).
@@ -722,6 +723,7 @@ def scan_and_remap_reads_native(
     def dispatch(d):
         nonlocal h2d_bytes, h2d_rev, n_rev
         bcfg = buckets[int(d.bucket)]
+        per_bucket[int(d.bucket)] += 1
         kw = bucket_kwargs(bcfg)
         # fixed shape: slots are always batch_size rows (EOF partials are
         # pre-padded by the C++ side)
@@ -826,6 +828,7 @@ def scan_and_remap_reads_native(
         "rev_batches": n_rev,
         "h2d_bytes_per_batch": h2d_bytes // max(n_batches, 1),
         "h2d_bytes_per_rev_batch": h2d_rev // max(n_rev, 1),
+        "batches_per_bucket": per_bucket,
         "kernel_launches": {
             k: v - launches_before[k] for k, v in _cuda.launch_counts.items()
         },
@@ -840,7 +843,8 @@ def scan_and_remap_reads_native(
     logger.info(
         f"H2D per batch: {stats['h2d_bytes_per_batch']} bytes "
         f"({'resident' if resident else 'table'} slots, {n_batches} batches, "
-        f"rev_batches {n_rev} of {stats['h2d_bytes_per_rev_batch']} bytes)"
+        f"rev_batches {n_rev} of {stats['h2d_bytes_per_rev_batch']} bytes, "
+        f"batches per bucket {per_bucket})"
     )
     if os.environ.get("PTPU_FEED_TIMING"):
         logger.info(

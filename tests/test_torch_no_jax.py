@@ -1,8 +1,8 @@
 """The PyTorch port never imports jax (the machine with the GPU has none)
 nor the JAX package ``portello_tpu``: it stands alone.
 
-Runs in a fresh interpreter: imports every module of the port and
-``chip_smoke``, runs a small forward step in each slot mode, a small reverse
+Runs in a fresh interpreter: imports every module of the port,
+``chip_smoke`` and ``scripts/torch_*.py``, runs a small forward step in each slot mode, a small reverse
 step, and small CLI runs on the CPU on the native feed, on the Python feed
 under device-shift routing and with ``--local-workers 2``, then checks
 ``sys.modules``.  An import hook refuses jax and ``portello_tpu`` from the
@@ -39,6 +39,14 @@ PROGRAM = textwrap.dedent(
     for mod in pkgutil.walk_packages(portello_tpu_torch.__path__,
                                      "portello_tpu_torch."):
         importlib.import_module(mod.name)
+    import glob
+    import importlib.util
+    scripts = sorted(glob.glob(os.path.join("scripts", "torch_*.py")))
+    assert len(scripts) >= 4, scripts
+    for path in scripts:
+        spec = importlib.util.spec_from_file_location(
+            os.path.basename(path)[:-3], path)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
     from portello_tpu_torch.kernels.resident import genome_tensor
     from portello_tpu_torch.models.batch import BucketConfig
     from portello_tpu_torch.models.pipeline_model import (

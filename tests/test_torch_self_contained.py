@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``portello_tpu_torch`` and nothing in
-``chip_smoke.py`` imports the JAX package ``portello_tpu`` (or jax), at any
+``chip_smoke.py`` or ``scripts/torch_*.py`` imports the JAX package ``portello_tpu`` (or jax), at any
 level of the syntax tree; the port's copies of the JAX package's host
 modules and C++ sources equal their originals but for the import paths;
 the copied numpy oracle computes what the original does; and a contig index
@@ -31,7 +31,10 @@ REFUSED = ("portello_tpu", "jax")
 
 
 def _port_sources():
-    out = ["chip_smoke.py"]
+    scripts = os.path.join(REPO, "scripts")
+    out = ["chip_smoke.py"] + sorted(
+        os.path.join("scripts", f) for f in os.listdir(scripts)
+        if f.startswith("torch_") and f.endswith(".py"))
     for root, dirs, files in os.walk(PORT):
         dirs[:] = sorted(d for d in dirs if d not in ("_build", "__pycache__"))
         out += sorted(os.path.relpath(os.path.join(root, f), REPO)
@@ -67,7 +70,7 @@ COPIED = (
     "io/fqzcomp.py", "io/arith_nx16.py",
     "ops/__init__.py", "ops/blockmap.py", "ops/cigar.py", "ops/clip.py",
     "ops/homology.py", "ops/liftover.py", "ops/score.py", "ops/seq.py",
-    "ops/shift.py", "ops/simplify.py",
+    "ops/shift.py", "ops/simplify.py", "ops/native_core.py",
     "utils/__init__.py", "utils/chrom_list.py", "utils/genome_segment.py",
     "utils/int_range.py", "utils/progress.py", "utils/regions.py",
     "tools/merge.py", "tools/view.py", "tools/index.py", "tools/sort.py",
@@ -77,9 +80,9 @@ COPIED = (
     "io/native/ptscan.cc", "io/native/ptio.cc", "io/native/ptcore.cc",
 )
 
-# The only lines that differ beyond the import paths: the codec library
-# builds into the port's _build/, and the contig index loads through a
-# reader that maps the JAX package's class paths to the port's.
+# The only lines that differ beyond the import paths: the codec and core
+# libraries build into the port's _build/, and the contig index loads
+# through a reader that maps the JAX package's class paths to the port's.
 _UNPICKLER = textwrap.dedent('''\
     def _index_unpickler(f):
         """A pickle reader that loads an index written by either CLI into this
@@ -102,6 +105,11 @@ EXPECTED_EDITS = {
     "io/native_codec.py": (
         ('_SO = os.path.join(_HERE, "..", "_build", "native", "ptio.so")',
          '_SO = os.path.join(_HERE, "native", "_build", "ptio.so")'),
+    ),
+    "ops/native_core.py": (
+        ('_SO = os.path.join(_HERE, "..", "_build", "native", "ptcore.so")',
+         '_SO = os.path.join(_HERE, "..", "io", "native", "_build", '
+         '"ptcore.so")'),
     ),
     "pipeline/contig_scan.py": (
         (_UNPICKLER, ""),
