@@ -11,8 +11,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    source) and the native scanner.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
    the device steps' shapes, with equality required (tolerance 0: all data
-   is integers); median CUDA-event times of both.  Kernel 1 also runs on
-   the reverse step's stage-B emission streams (K=257 and K=2049, odd
+   is integers); median CUDA-event times of both.  Kernel 1 runs at both
+   sites of every bucket (K = 352 / 464, 704 / 912 and 2816 / 3600), and
+   on the reverse step's stage-B emission streams (K=257, 513 and 2049, odd
    widths with zero-length non-PAD ops), kernel 2 on stage A's homology
    runs (backward, contig windows, limits up to the read length), on the
    edges of its contract (rows not a multiple of 16 bytes, windows of 64
@@ -76,7 +77,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    run's records equal to the port's ``--device host`` (a CRAM run's with
    ``=``/``X`` written as ``M``), its H2D bytes those of its buckets' slots.
 
-Phases 4b, 5 and 5b's inputs (the spill items and both scenarios) build in
+6. bench  -- ``python -m portello_tpu_torch.bench`` with its defaults in
+   a subprocess (B=512 18 kb items, the 10,000-read e2e leg); its JSON line
+   printed on a line of its own, the resident graph, launches of kernels 1
+   and 3 on the timed legs and of kernel 2 on the table diagnostic, finite
+   positive times and rates, the native C++ baseline and the e2e fields
+   required.
+
+Phases 4b, 5, 5b and 6's inputs (the spill items, both scenarios and the
+bench's e2e scenario in its cache) build in
 spawned worker processes during phase 2 and phase 4's batch, before anything
 is timed (``start_inputs``); the ``--device host`` references run one at a
 time in phases 5 and 5b, each wall logged alone.
@@ -505,6 +514,7 @@ def _bound_text(nbytes: int, ms: float) -> str:
 
 
 def phase_kernels(rng, rev_arrays):
+    import numpy as np
     import torch
 
     from portello_tpu_torch.kernels.cigar_kernels import (
@@ -515,10 +525,15 @@ def phase_kernels(rng, rev_arrays):
     dev = torch.device("cuda")
     results = {}
     # (K, max_out): the lift site (2U = 352) and finish site (2 * max_out =
-    # 464) of the primary bucket, and both sites of the widest bucket.
+    # 464) of the primary bucket, both sites of the widest bucket, then both
+    # sites of the mid bucket (from a generator of their own, so the draws
+    # of every later case stay as they were).
     err1 = 0
-    for k, max_out in ((352, 232), (464, 232), (2816, 1800), (3600, 1800)):
-        codes, lens = compress_case(rng, 512, k)
+    mid_rng = np.random.default_rng(SEED + 60)
+    for gen, k, max_out in ((rng, 352, 232), (rng, 464, 232),
+                            (rng, 2816, 1800), (rng, 3600, 1800),
+                            (mid_rng, 704, 456), (mid_rng, 912, 456)):
+        codes, lens = compress_case(gen, 512, k)
         c = torch.from_numpy(codes).to(dev)
         ln = torch.from_numpy(lens).to(dev)
         got = cleanup_and_compress_cuda(c, ln, max_out)
@@ -615,8 +630,11 @@ def reverse_step_cases(rng, rev_arrays, dev):
     without the window and direction, the window, the most ops of an
     item).  The primary bucket's case is the B=512 batch of phase 4; the
     widest bucket's is 64 items with half of them at nonzero window bases,
-    each row repeated 8 times; in both, two items in three carry a
-    zero-length soft clip."""
+    each row repeated 8 times; the mid bucket's is 64 items of 129-256 ops
+    made the same way from a generator of its own; in all, two items in
+    three carry a zero-length soft clip."""
+    import numpy as np
+
     from portello_tpu_torch.models.pipeline_model import (
         DEFAULT_BUCKETS,
         _rev_ops_bound,
@@ -630,11 +648,16 @@ def reverse_step_cases(rng, rev_arrays, dev):
     wide = DEFAULT_BUCKETS[2]
     wide_arrays, _ = shift_win_base(make_item_arrays(
         rng, 64, wide, read_len=18000, read_error=0.03, rev=True), rng)
+    mid, mid_rng = DEFAULT_BUCKETS[1], np.random.default_rng(SEED + 61)
+    mid_arrays, _ = shift_win_base(make_item_arrays(
+        mid_rng, 64, mid, read_len=20000, read_error=0.0095, rev=True),
+        mid_rng)
     cases = []
     for label, arrays, bcfg, rep in (
         ("primary bucket", with_zero_length_clips(rev_arrays),
          DEFAULT_BUCKETS[0], 1),
         ("widest bucket", with_zero_length_clips(wide_arrays), wide, 8),
+        ("mid bucket", with_zero_length_clips(mid_arrays), mid, 8),
     ):
         stream, homology = shift_case(arrays, bcfg)
         max_out = _rev_ops_bound(bcfg.max_ops, bcfg.resolved_max_out())
@@ -642,7 +665,7 @@ def reverse_step_cases(rng, rev_arrays, dev):
                       max_out, [x.repeat(rep, 1).to(dev) for x in homology],
                       bcfg.window, int(arrays[2].max())))
     log(f"kernels on reverse-step inputs: plain stage A on the CPU for a "
-        f"B=512 primary batch and 64 widest-bucket items in "
+        f"B=512 primary batch and 64 widest- and 64 mid-bucket items in "
         f"{time.perf_counter() - t0:.1f} s")
     return cases
 
@@ -1397,10 +1420,10 @@ def _cli_cmd(module, d, tag, device, extra=(), env_extra=None, inputs=INPUTS):
     return cmd, env
 
 
-def _start(cmd, env):
+def _start(cmd, env, stdout=subprocess.DEVNULL):
     """Start a CLI as the leader of a new process group, so that ``_finish``
     can stop the workers it forks along with it."""
-    return subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.DEVNULL,
+    return subprocess.Popen(cmd, cwd=HERE, env=env, stdout=stdout,
                             stderr=subprocess.PIPE, text=True,
                             start_new_session=True)
 
@@ -1860,13 +1883,79 @@ def phase_e2e(smi, inputs):
     return runs
 
 
+# ---------------------------------------------------------------- phase 6
+# Kernels the bench's line must show launched, per call of a leg: the
+# headline forward leg on resident slots, and the table-step diagnostic.
+BENCH_LAUNCHES = (("fwd", "cleanup_and_compress"), ("fwd", "window_match"),
+                  ("rev_fwd", "cleanup_and_compress"),
+                  ("rev_fwd", "window_match"), ("fwd_table", "match_run"))
+BENCH_POSITIVE = ("value", "t_fwd_ms", "t_fwd_device_ms", "t_rev_fwd_ms",
+                  "t_rev_fwd_device_ms", "baseline_reads_per_s",
+                  "feed_reads_per_s", "e2e_reads_per_s", "lone_call_ms",
+                  "host_probe_us")
+BENCH_E2E = ("feed_reads_per_s", "e2e_reads_per_s", "e2e_wall_s",
+             "e2e_n_primary", "e2e_scenario", "feed_reads_per_s_runs",
+             "e2e_reads_per_s_runs", "e2e_warmup_wall_s")
+
+
+def phase_bench(name, smi_line):
+    """Phase 6: the port's bench, ``python -m portello_tpu_torch.bench``,
+    in a process group of its own on the card with its defaults (B=512 18 kb
+    items, 1 s passes, 3 runs, the 10,000-read e2e leg run 3 times after a
+    warm-up run); prints its JSON line and requires the resident graph on
+    this card, launches of the hand kernels on the timed legs, finite
+    positive times and rates, the native C++ baseline, and the e2e
+    fields."""
+    import math
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PTPU_BENCH_")}
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as stdout:
+        _finish(_start([sys.executable, "-m", "portello_tpu_torch.bench"],
+                       env, stdout), "bench")
+        stdout.seek(0)
+        out = stdout.read()
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    require(len(lines) == 1, f"bench printed {len(lines)} JSON lines:\n{out}")
+    print(lines[0], flush=True)
+    line = json.loads(lines[0])
+    require(line["graph"] == "resident", f"bench graph {line['graph']}")
+    require(line["device"] == name, f"bench device {line['device']!r}")
+    require(line["power_limit"] and line["power_limit"] in smi_line,
+            f"bench power limit {line['power_limit']!r} not in {smi_line!r}")
+    launches = line["kernel_launches_per_call"]
+    for leg, kernel in BENCH_LAUNCHES:
+        require(launches[leg][kernel] > 0, f"bench {leg}: no {kernel} launch")
+    for key in BENCH_POSITIVE:
+        v = line[key]
+        require(isinstance(v, (int, float)) and math.isfinite(v) and v > 0,
+                f"bench {key} = {v!r}")
+    require(line["baseline_protocol"].startswith("median5-1t-native-mix"),
+            f"bench baseline {line['baseline_protocol']!r}")
+    missing = [k for k in BENCH_E2E if line.get(k) is None]
+    require(not missing, f"bench line lacks {missing}")
+    log(f"bench: {wall:.1f} s; value {line['value']} reads/s (spread "
+        f"{line['value_spread']}, vs_baseline {line['vs_baseline']}), t_fwd "
+        f"{line['t_fwd_ms']} ms "
+        f"sustained / {line['t_fwd_device_ms']} ms device (busy share "
+        f"{line['device_busy_share']}), feed {line['feed_reads_per_s']} "
+        f"reads/s, e2e {line['e2e_reads_per_s']} reads/s; launches per call "
+        f"{json.dumps(launches)}")
+    return line
+
+
 def start_inputs(pool, work) -> dict:
     """Submit to ``pool`` what phases 4b, 5 and 5b build on the CPU, so that
     it builds while the kernels do: the mid- and wide-bucket items
     (``testutil/spill.spill_jobs``), and in directories under ``work`` the
     bench scenario with its CRAM copy and the WGS-shaped one with the
-    fallback reads (``bench_job``, ``wgs_job``).  ``take_inputs`` collects
-    them."""
+    fallback reads (``bench_job``, ``wgs_job``), and the bench's own e2e
+    scenario in its cache under ``.bench_cache/`` (phase 6).  ``take_inputs``
+    collects them."""
+    from portello_tpu_torch import bench
     from portello_tpu_torch.testutil import spill
 
     dirs = {name: os.path.join(work, name) for name in ("bench", "wgs")}
@@ -1875,6 +1964,8 @@ def start_inputs(pool, work) -> dict:
     return {
         "bench": pool.submit(_clocked, bench_job, dirs["bench"]),
         "wgs": pool.submit(_clocked, wgs_job, dirs["wgs"]),
+        "bench_e2e": pool.submit(_clocked, bench._e2e_scenario_dir,
+                                 bench.E2E_READS, bench.E2E_READLEN),
         "spill": {bi: [pool.submit(_clocked, spill.make_chunk, job)
                        for job in spill.spill_jobs(SEED + 40 + bi, 512, bi)]
                   for bi in SPILL_BUCKETS},
@@ -1895,9 +1986,11 @@ def take_inputs(pending) -> dict:
         batches[bi] = concat_batches(c for _, c in chunks)
     bench_s, cram = pending["bench"].result()
     wgs_s, wgs = pending["wgs"].result()
+    bench_e2e_s, _ = pending["bench_e2e"].result()
     log(f"inputs, built in worker processes beside phases 2 and 4's batch, "
         f"all in {time.perf_counter() - pending['t0']:.1f} s of wall time; "
-        f"{spill_s + bench_s + wgs_s:.1f} s one after another: 512 mid-bucket "
+        f"{spill_s + bench_s + wgs_s + bench_e2e_s:.1f} s one after another: "
+        f"the bench's e2e scenario (cached) {bench_e2e_s:.1f} s, 512 mid-bucket "
         f"and 512 wide-bucket items (make_item_arrays) {spill_s:.1f} s, the "
         f"bench scenario (4 contigs x 400 reads x 18 kb) and its CRAM 3.1 "
         f"copy {bench_s:.1f} s, the WGS-shaped scenario ({wgs['n']} reads of "
@@ -1942,6 +2035,7 @@ def main() -> int:
                 smi_line, inputs["spill"])
             log(f"spill: phase 4b took {time.perf_counter() - t0:.1f} s")
             e2e = phase_e2e(smi_line, inputs)
+        phase_bench(name, smi_line)
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "portello_tpu")]
         require(not leaked, f"imported {leaked[:5]}")

@@ -73,6 +73,8 @@ COPIED = (
     "ops/shift.py", "ops/simplify.py", "ops/native_core.py",
     "utils/__init__.py", "utils/chrom_list.py", "utils/genome_segment.py",
     "utils/int_range.py", "utils/progress.py", "utils/regions.py",
+    "utils/misc.py", "utils/containers.py", "utils/prob.py",
+    "auxlib/__init__.py", "auxlib/basemod.py", "auxlib/bigwig.py",
     "tools/merge.py", "tools/view.py", "tools/index.py", "tools/sort.py",
     "pipeline/contig_scan.py", "pipeline/read_scan.py",
     "pipeline/split_read.py",
