@@ -36,6 +36,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    times per batch, ms/batch and device time beside the single-device
    step's; and ``graft_entry``: ``entry()`` on the card equal to
    ``entry(device="cpu")``, ``dryrun_multichip`` on the same mesh.
+   Each step compiled (``models/compiled.py``, one CUDA graph per step and
+   shard, fed by ``parallel/mesh.ShardedStep`` through pinned staging), on
+   one device and on two shards of the card: two batches in flight, each
+   equal to the eager step on every field; launches per replay equal to
+   the captured counts and to the eager step's; ms per call of the replay
+   and of the eager step, device ms, a lone call from host arrays through
+   the staging beside an eager one, and the hand kernels inside a replay.
+   The sharded steps above are these compiled steps.
 4b. spill  -- the spill path's steps at B=512: ~20 kb items at 129-256 ops
    in the mid bucket and 25-60 kb items in the wide bucket
    (``testutil/spill.spill_jobs``).  Per bucket
@@ -45,8 +53,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    to the table step, the first 64 rows equal to the CPU plain steps; H2D
    bytes per batch against the slot shapes (``SPILL_H2D``), ms/batch, device
    time and kernels, each hand kernel's ms per call inside the step,
-   launches, fallbacks and peak memory.  Then the hostile-rate fuzz of the
-   small bucket on the card (seeds 0-3 and the cluster-overflow item).
+   launches, fallbacks and peak memory; and the compiled steps as in phase
+   4.  Then the hostile-rate fuzz of the small bucket on the card (seeds
+   0-3 and the cluster-overflow item).
 5. e2e     -- the CLI (``python -m portello_tpu_torch.main --device cuda``)
    on the 18 kb bench scenario: the native feed in resident slot mode (the
    default), on table slots (``PTPU_RESIDENT=0``), under device-shift
@@ -66,7 +75,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    (gloo rendezvous) whose shards ``merge_bams`` joins, and ``--profile``,
    whose Chrome trace must name kernels 1 and 3.  Each run's merged records
    must equal the host path's, and each worker's and host's log must show
-   launches of kernels 1 and 3.
+   launches of kernels 1 and 3.  Every native-feed process must log that it
+   ran its steps as CUDA graphs, one replay per batch and shard.
 5b. spill e2e -- ``--device cuda`` on the WGS-shaped scenario
    (``testutil/spill.build_scenario``: 2-60 kb reads) on the native feed in
    resident and table slots and under device-shift routing, and on the
@@ -80,9 +90,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. bench  -- ``python -m portello_tpu_torch.bench`` with its defaults in
    a subprocess (B=512 18 kb items, the 10,000-read e2e leg); its JSON line
    printed on a line of its own, the resident graph, launches of kernels 1
-   and 3 on the timed legs and of kernel 2 on the table diagnostic, finite
-   positive times and rates, the native C++ baseline and the e2e fields
-   required.
+   and 3 on the timed legs (compiled and eager, the same per call) and of
+   kernel 2 on the table and chain diagnostics, finite positive times and
+   rates, the native C++ baseline and the e2e fields required.
 
 Phases 4b, 5, 5b and 6's inputs (the spill items, both scenarios and the
 bench's e2e scenario in its cache) build in
@@ -112,8 +122,9 @@ W = 48                        # the buckets' simplify window
 
 KERNELS = ("cleanup_and_compress", "match_run", "window_match")
 
-# The order in which phase 4 times its steps, single-device and sharded.
-STEP_ORDER = ("table", "resident", "rev", "rev", "resident", "table")
+# The order in which phases 4 and 4b time the eager and the sharded steps,
+# one pass each (the compiled steps are timed in ``check_graphs``).
+STEP_ORDER = ("table", "resident", "rev")
 
 # The least time for a kernel's work: the bytes it must move (each input read
 # once, each output written once) over the H100 SXM's HBM3 rate at its full
@@ -904,6 +915,125 @@ def _kernels_in_step(step, reps: int = 10) -> dict:
     return found
 
 
+# The step kind of each mode of phases 4 and 4b, compiled.
+GRAPH_KINDS = {"table": "fwd", "resident": "fwd_resident", "rev": "rev"}
+LONE_CALLS = 10
+
+
+def _rolled(arrays):
+    """The batch with its rows moved down by 7: other inputs in every row."""
+    import numpy as np
+
+    return tuple(np.ascontiguousarray(np.roll(a, 7, axis=0)) for a in arrays)
+
+
+def _lone_ms(call) -> float:
+    """Median host-clock ms of ``LONE_CALLS`` calls that each end on the
+    host, after a warm-up call."""
+    call()
+    samples = []
+    for _ in range(LONE_CALLS):
+        t0 = time.perf_counter()
+        call()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def check_graphs(name, kw, cases, launches, times, smi) -> dict:
+    """The compiled steps (``models/compiled.py``, one CUDA graph per step
+    and shard, fed by ``parallel/mesh.ShardedStep``) of one bucket at B=512.
+
+    ``cases`` maps each mode to its numpy inputs, the genome (resident) and
+    the same inputs on the card.  On one device and on two shards of the
+    card: two batches, the inputs and the inputs rolled by 7 rows, are
+    submitted before either is waited on, and each equals the eager step on
+    the card on every field (tolerance 0); each graph's captured launches
+    equal the eager step's (``launches``), and the replays count exactly
+    them.  Then, on one device, the replay's ms per call (host clock +
+    sync, CUDA events) and device ms beside the eager step's (``times``),
+    a lone call from host arrays through the pinned staging beside an eager
+    one from pageable arrays, and the hand kernels inside a replay.
+    Returns the in-replay kernel times by mode."""
+    import torch
+
+    from portello_tpu_torch.graft_entry import require_equal
+    from portello_tpu_torch.kernels import _cuda
+    from portello_tpu_torch.models.compiled import StepCache, step_function
+    from portello_tpu_torch.parallel.mesh import sharded_step
+
+    cuda = torch.device("cuda")
+    b = 512
+    in_step = {}
+    for mode, (arrays, genome, dev_args) in cases.items():
+        kind = GRAPH_KINDS[mode]
+        fn = step_function(kind, kw)
+        extra = () if genome is None else (genome,)
+        other = _rolled(arrays)
+        want = [fn(*dev_args, *extra),
+                fn(*(torch.from_numpy(a).to(cuda) for a in other), *extra)]
+        torch.cuda.synchronize()
+        for n in (1, 2):
+            mesh = [cuda] * n
+            cache = StepCache()
+            step = sharded_step(cache, kind, mesh, b, kw,
+                                None if genome is None else [genome] * n)
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            handles = [step.submit(*arrays), step.submit(*other)]
+            issue_s = time.perf_counter() - t0
+            got = [h.wait() for h in handles]
+            counted = dict(_cuda.launch_counts)
+            for g, w, which in zip(got, want, ("first", "second")):
+                require_equal({k: torch.from_numpy(v) for k, v in g.items()},
+                              w, f"graphs {name} {mode} on {n} shard(s), the "
+                              f"{which} of two batches in flight vs eager")
+            graphs = cache.graphs()
+            require(len(graphs) == n and all(g.graph for g in graphs),
+                    f"graphs {name} {mode}: {len(graphs)} graphs for {n} "
+                    "shards")
+            for g in graphs:
+                require(g.launches == launches[mode] and g.replays == 2,
+                        f"graphs {name} {mode}: captured {g.launches} over "
+                        f"{g.replays} replays, the eager step launches "
+                        f"{launches[mode]}")
+            want_counted = {k: 2 * n * v for k, v in launches[mode].items()}
+            require(counted == want_counted,
+                    f"graphs {name} {mode}: replays counted {counted}, want "
+                    f"{want_counted}")
+            log(f"graphs {name} {mode} B={b} on {n} shard(s) of one card: "
+                f"two batches in flight (submitted in {issue_s:.3f} s, "
+                f"capture included) == the eager step on all {len(want[0])} "
+                f"fields; launches per replay {json.dumps(graphs[0].launches)}"
+                f" == captured == the eager step's; counted over 2 x {n} "
+                f"replays {json.dumps(counted)}")
+            if n == 1:
+                single, single_cache = graphs[0], cache
+        ms, dev_ms, n_dev = _step_times(single.replay, b,
+                                        f"graphs {name} {mode} (replay)")
+        eager = times[mode]
+        lone_step = sharded_step(single_cache, kind, [cuda], b, kw,
+                                 None if genome is None else [genome])
+        lone = _lone_ms(lambda: lone_step.submit(*arrays).wait())
+        lone_eager = _lone_ms(lambda: {k: v.cpu() for k, v in fn(
+            *(torch.from_numpy(a).to(cuda) for a in arrays), *extra).items()})
+        in_step[mode] = _kernels_in_step(single.replay)
+        log(f"graphs {name} {mode} ({smi}): ms per call (host clock + sync) "
+            f"replay {ms:.3f}, eager " + " / ".join(f"{t[0]:.3f}" for t in eager)
+            + f"; device ms replay {dev_ms:.3f} in {n_dev:.0f} device kernels "
+            f"and copies, eager " + " / ".join(f"{t[1]:.3f}" for t in eager)
+            + f"; lone call from host arrays: graph through pinned staging "
+            f"{lone:.3f} ms, eager from pageable arrays {lone_eager:.3f} ms "
+            f"(medians of {LONE_CALLS}); hand kernels in a replay: "
+            + "; ".join(f"{kn} {kms:.4f} ms per call, {kc:.0f} calls per step"
+                        for kn, (kms, kc) in in_step[mode].items()))
+        for kname in PATH_KERNELS[mode]:
+            require(kname in in_step[mode],
+                    f"graphs {name} {mode}: a replay's profile names no {kname}")
+        del single, single_cache, lone_step, want
+    torch.cuda.empty_cache()
+    return in_step
+
+
 def hifi_batch(rng):
     """B=512 HiFi items (18 kb) in the primary bucket, as ``rev_batch``'s
     inputs; without ``win_base`` and ``contig_win`` they are ``fwd_batch``'s."""
@@ -1055,13 +1185,18 @@ def phase_forward(rng, rev_arrays, smi):
     for name in PATH_KERNELS["resident"]:
         require(name in in_step["resident"],
                 f"the resident step's profile names no {name} kernel")
+    graph_in_step = {f"primary_{mode}": t for mode, t in check_graphs(
+        "primary", kw, {"table": (arrays, None, table_args),
+                        "resident": (res_arrays, genome, res_args),
+                        "rev": (rev_arrays, None, rev_args)},
+        launches, times, smi).items()}
     del genome
     torch.cuda.empty_cache()
     phase_sharded(genome_np, kw,
-                  {"table": table_args, "resident": res_args, "rev": rev_args},
+                  {"table": arrays, "resident": res_arrays, "rev": rev_arrays},
                   {"table": table, "resident": res, "rev": rev},
-                  launches, times, smi)
-    return launches, in_step
+                  launches, smi)
+    return launches, in_step, graph_in_step
 
 
 def _peak_bytes(fn, devices) -> int:
@@ -1089,24 +1224,21 @@ def smoke_mesh():
     return make_mesh(devices=devs * 2), "two shards on one card (cuda:0 twice)"
 
 
-def phase_sharded(genome_np, kw, args, single, launches, times, smi):
-    """The three sharded steps (``parallel/mesh.py``) on ``smoke_mesh()``
-    at phase 4's B=512 batch, the resident genome replicated once per
-    distinct device: every output field equal to the single-device step's
-    (tolerance 0), each kernel launched n times as often per batch, and
-    timed beside the single-device step; then ``graft_entry``: ``entry()``
-    on the card against ``entry(device="cpu")``, and ``dryrun_multichip``
-    on the same mesh."""
+def phase_sharded(genome_np, kw, args, single, launches, smi):
+    """The three sharded steps (``parallel/mesh.py``: one CUDA graph per
+    shard, fed through pinned staging) on ``smoke_mesh()`` at phase 4's
+    B=512 batch (``args``: numpy inputs by mode), the resident genome
+    replicated once per distinct device: every output field equal to the
+    single-device eager step's (tolerance 0), each kernel launched n times
+    as often per batch, and each batch from host arrays to host outputs
+    timed beside the same dispatch on a one-device mesh; then
+    ``graft_entry``: ``entry()`` on the card against
+    ``entry(device="cpu")``, and ``dryrun_multichip`` on the same mesh."""
     import torch
 
     from portello_tpu_torch import graft_entry
     from portello_tpu_torch.graft_entry import require_equal
     from portello_tpu_torch.kernels import _cuda
-    from portello_tpu_torch.models.pipeline_model import (
-        fwd_batch,
-        fwd_batch_resident,
-        rev_batch,
-    )
     from portello_tpu_torch.parallel.mesh import (
         make_sharded_fwd_resident_step,
         make_sharded_fwd_step,
@@ -1118,8 +1250,8 @@ def phase_sharded(genome_np, kw, args, single, launches, times, smi):
     n = len(mesh)
     distinct = sorted(set(mesh), key=str)
     log(f"sharded: a mesh of {n} shards, {which}: "
-        f"{', '.join(str(d) for d in mesh)}; the batch starts on {mesh[0]}, "
-        f"so a shard on another device is copied there in each call")
+        f"{', '.join(str(d) for d in mesh)}; each shard's rows go from "
+        f"pinned staging to its own device and back")
     before = {d: torch.cuda.memory_allocated(d) for d in distinct}
     for d in distinct:
         torch.cuda.reset_peak_memory_stats(d)
@@ -1140,45 +1272,52 @@ def phase_sharded(genome_np, kw, args, single, launches, times, smi):
     log(f"sharded: {len(distinct)} genome copies for {n} shards uploaded in "
         f"{upload_s:.2f} s")
 
-    steps = {
-        "table": lambda: make_sharded_fwd_step(mesh, **kw)(*args["table"]),
-        "resident": lambda: make_sharded_fwd_resident_step(mesh, **kw)(
-            *args["resident"], replicas),
-        "rev": lambda: make_sharded_rev_step(mesh, **kw)(*args["rev"]),
-    }
+    makers = {"table": make_sharded_fwd_step,
+              "resident": make_sharded_fwd_resident_step,
+              "rev": make_sharded_rev_step}
+
+    def dispatch(m):
+        """Each mode's sharded step on mesh ``m``, compiled once."""
+        run = {mode: make(m, **kw) for mode, make in makers.items()}
+        return {"table": lambda: run["table"](*args["table"]),
+                "resident": lambda: run["resident"](*args["resident"],
+                                                    replicas[:len(m)]),
+                "rev": lambda: run["rev"](*args["rev"])}
+
+    steps, one_device = dispatch(mesh), dispatch(mesh[:1])
     labels = {"table": "forward table step", "resident": "forward resident step",
               "rev": "reverse step"}
     b = args["table"][0].shape[0]
     for mode, step in steps.items():
         _cuda.reset_launch_counts()
         out = step()
-        torch.cuda.synchronize()
         got = dict(_cuda.launch_counts)
         require_equal(out, single[mode], f"sharded {labels[mode]} vs one device")
         want = {k: n * v for k, v in launches[mode].items()}
         require(got == want, f"sharded {labels[mode]}: launches {got}, want "
                 f"{n} x {launches[mode]}")
-        log(f"sharded {labels[mode]} B={b} over {n} shards of {b // n}: equal "
-            f"to the single-device step on all {len(out)} fields; launches per "
-            f"batch {json.dumps(got)} ({n} x the single-device count)")
-    one_device = {
-        "table": lambda: fwd_batch(*args["table"], **kw),
-        "resident": lambda: fwd_batch_resident(*args["resident"], replicas[0],
-                                               **kw),
-        "rev": lambda: rev_batch(*args["rev"], **kw),
-    }
+        log(f"sharded {labels[mode]} B={b} over {n} shards of {b // n}, one "
+            f"graph each: equal to the single-device eager step on all "
+            f"{len(out)} fields; launches per batch {json.dumps(got)} ({n} x "
+            f"the single-device count, counted per replay)")
     for mode in steps:
-        log(f"sharded {labels[mode]}: peak device memory over one step "
-            f"(max_memory_allocated; the genome and the batch's inputs "
-            f"included): 1 shard {_peak_bytes(one_device[mode], mesh[:1])} "
-            f"bytes, {n} shards {_peak_bytes(steps[mode], distinct)} bytes")
+        one_device[mode]()  # captured before its peak is read
+        log(f"sharded {labels[mode]}: peak device memory over one batch "
+            f"(max_memory_allocated; the genome, the graphs' static inputs "
+            f"and outputs included): 1 shard "
+            f"{_peak_bytes(one_device[mode], mesh[:1])} bytes, {n} shards "
+            f"{_peak_bytes(steps[mode], distinct)} bytes")
+    times = {mode: [] for mode in steps}
     sharded_times = {mode: [] for mode in steps}
     for mode in STEP_ORDER:
+        times[mode].append(_step_times(
+            one_device[mode], b, f"sharded {labels[mode]} (1 shard)"))
         sharded_times[mode].append(_step_times(
             steps[mode], b, f"sharded {labels[mode]} ({n} shards)"))
     for mode in steps:
         one, many = times[mode], sharded_times[mode]
-        log(f"sharded {labels[mode]}: ms/batch (host clock + sync) 1 shard "
+        log(f"sharded {labels[mode]}: ms/batch from host arrays to host "
+            f"outputs (host clock + sync) 1 shard "
             + " / ".join(f"{t[0]:.3f}" for t in one) + f", {n} shards "
             + " / ".join(f"{t[0]:.3f}" for t in many)
             + "; device time 1 shard "
@@ -1186,7 +1325,7 @@ def phase_sharded(genome_np, kw, args, single, launches, times, smi):
             + " / ".join(f"{t[1]:.3f}" for t in many)
             + f" ms; device kernels and copies per batch {one[0][2]:.0f} and "
             f"{many[0][2]:.0f} ({smi})")
-    del replicas
+    del replicas, steps, one_device
     torch.cuda.empty_cache()
 
     fn, cuda_args = graft_entry.entry()
@@ -1216,9 +1355,9 @@ def phase_spill_steps(smi, batches):
     ``batches``: each bucket's ``rev_batch`` inputs, by bucket index),
     each unflagged item against the exact C++ core, the resident step
     against the table step, the first 64 rows against the CPU plain step;
-    timed, profiled and counted.  Then the hostile-rate fuzz on the card.
-    Returns (launches per batch, in-step kernel times), by
-    ``<bucket>_<step>``."""
+    timed, profiled and counted; each step compiled (``check_graphs``).
+    Then the hostile-rate fuzz on the card.  Returns (launches per batch,
+    in-step kernel times, in-replay kernel times), by ``<bucket>_<step>``."""
     import numpy as np
     import torch
 
@@ -1244,7 +1383,7 @@ def phase_spill_steps(smi, batches):
     cuda = torch.device("cuda")
     b = 512
     rng = np.random.default_rng(SEED + 4)
-    launches, in_step = {}, {}
+    launches, in_step, graph_in_step = {}, {}, {}
     for bi, rev_arrays in batches.items():
         name = SPILL_BUCKETS[bi]
         bcfg = DEFAULT_BUCKETS[bi]
@@ -1364,6 +1503,13 @@ def phase_spill_steps(smi, batches):
                 f"step: " + "; ".join(
                     f"{kn} {ms:.4f} ms per call, {n:.0f} calls per step"
                     for kn, (ms, n) in in_step[key].items()))
+        bucket_graphs = check_graphs(
+            name, kw, {"table": (arrays, None, args["table"]),
+                       "resident": (res_arrays, genome, args["resident"]),
+                       "rev": (rev_arrays, None, args["rev"])},
+            {mode: launches[f"{name}_{mode}"] for mode in steps}, times, smi)
+        graph_in_step.update({f"{name}_{mode}": t
+                              for mode, t in bucket_graphs.items()})
         del genome, args, steps, outs, moved_out
         torch.cuda.empty_cache()
 
@@ -1387,7 +1533,7 @@ def phase_spill_steps(smi, batches):
         f"oracle == the C++ core): {_native_text(counters)}, 0 wrong; "
         f"cluster-overflow item flagged, {ovf_counts['exact']} exact "
         f"beside it; {time.perf_counter() - t0:.1f} s")
-    return launches, in_step
+    return launches, in_step, graph_in_step
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1470,6 +1616,32 @@ _H2D = re.compile(r"H2D per batch: (\d+) bytes \((\w+) slots, (\d+) batches, "
                   r"rev_batches (\d+) of (\d+) bytes, batches per bucket "
                   r"\[([\d, ]+)\]\)")
 _PYFEED = re.compile(r"Python feed: (\d+) device batches, rev_batches (\d+)")
+_COMPILED = re.compile(r"Compiled steps: (\d+) \((CUDA graphs|eager) on "
+                       r"([^)]*)\), (\d+) replays for (\d+) batches over "
+                       r"(\d+) shards")
+
+
+def _graphs_text(err, what, processes=1) -> str:
+    """Each of the ``processes`` native-feed processes whose log is ``err``
+    compiled its steps as CUDA graphs on the card and dispatched every
+    batch as one replay per shard; a summary of their ``Compiled steps``
+    lines."""
+    found = _COMPILED.findall(err)
+    require(len(found) == processes,
+            f"{what}: {len(found)} 'Compiled steps' lines for {processes} "
+            f"processes:\n{err[-3000:]}")
+    texts = []
+    for graphs, how, devs, replays, batches, shards in found:
+        require(how == "CUDA graphs" and "cuda" in devs,
+                f"{what}: steps compiled as {how} on {devs}")
+        require(int(replays) == int(batches) * int(shards),
+                f"{what}: {replays} replays for {batches} batches over "
+                f"{shards} shards")
+        texts.append(f"{graphs} CUDA graphs, {replays} replays for "
+                     f"{batches} batches")
+    return "; ".join(texts)
+
+
 _SHARDING = re.compile(r"Sharding batches over (\d+) local devices")
 
 # The CLI runs of phase 5: (path, --feed, environment).
@@ -1497,7 +1669,7 @@ def _feed_line(path, feed, err):
         n_rev = int(hm.group(4))
         text = (f"H2D {hm.group(1)} bytes/batch over {hm.group(3)} batches "
                 f"({hm.group(2)} slots), {n_rev} reverse batches of "
-                f"{hm.group(5)} bytes")
+                f"{hm.group(5)} bytes; {_graphs_text(err, f'e2e {path}')}")
     else:
         pm = _PYFEED.search(err)
         require(pm is not None, f"e2e {path}: no Python feed line:\n{err[-3000:]}")
@@ -1597,12 +1769,13 @@ def phase_scale_out(d, want, threads, smi):
     require(not [f for f in os.listdir(d) if "_workers.shard" in f],
             "e2e workers: shard files left behind")
     runs["workers"] = _process_launches([err], "workers", "e2e workers")
+    graphs_text = _graphs_text(err, "e2e workers", 2)
     _same_records(d, "workers", want, "e2e workers")
     _log_lines(err, "workers", _SCALE_LINES)
     log(f"e2e workers (--local-workers 2 --threads {half}, native feed, "
         f"resident): merged output == --device host output; both workers "
-        f"launched compress and window_match; wall {wall:.2f} s ({smi}); "
-        f"launches {json.dumps(runs['workers'])}")
+        f"launched compress and window_match; {graphs_text}; wall "
+        f"{wall:.2f} s ({smi}); launches {json.dumps(runs['workers'])}")
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -1620,6 +1793,8 @@ def phase_scale_out(d, want, threads, smi):
                 f"e2e host {h}: no rendezvous line:\n{err[-3000:]}")
         _log_lines(err, f"host {h}", _SCALE_LINES)
     runs["hosts"] = _process_launches(errs, "hosts", "e2e hosts")
+    graphs_text = "; ".join(_graphs_text(err, f"e2e host {h}")
+                            for h, err in enumerate(errs))
     t1 = time.perf_counter()
     for kind in ("remapped", "un"):
         out = os.path.join(d, f"{kind}_hosts.bam")
@@ -1628,13 +1803,14 @@ def phase_scale_out(d, want, threads, smi):
     _same_records(d, "hosts", want, "e2e hosts")
     log(f"e2e hosts (2 concurrent --num-hosts 2 --coordinator processes, "
         f"--threads {half} each, gloo rendezvous): merged shards == --device "
-        f"host output; wall {wall:.2f} s for both, merge {merge_s:.2f} s "
-        f"({smi}); launches {json.dumps(runs['hosts'])}")
+        f"host output; {graphs_text}; wall {wall:.2f} s for both, merge "
+        f"{merge_s:.2f} s ({smi}); launches {json.dumps(runs['hosts'])}")
 
     prof = os.path.join(d, "prof")
     wall, err = _cli(module, d, "profile", "cuda",
                      (*feed, "--threads", threads, "--profile", prof))
     runs["profile"] = _process_launches([err], "profile", "e2e profile")
+    graphs_text = _graphs_text(err, "e2e profile")
     _same_records(d, "profile", want, "e2e profile")
     trace = os.path.join(prof, "trace.json")
     require(os.path.exists(trace), f"e2e profile: no trace at {trace}")
@@ -1642,7 +1818,8 @@ def phase_scale_out(d, want, threads, smi):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     total = sum(by_name.values())
     log(f"e2e profile (--profile, native feed, resident): output == --device "
-        f"host output; trace {os.path.getsize(trace)} bytes; wall "
+        f"host output; {graphs_text}, captured under the profiler; trace "
+        f"{os.path.getsize(trace)} bytes; wall "
         f"{wall:.2f} s ({smi}); device kernel time {total / 1e3:.3f} ms in "
         f"{len(by_name)} kernel names; top 5: "
         + "; ".join(f"{n[:100]} {us / 1e3:.3f} ms" for n, us in top))
@@ -1707,7 +1884,8 @@ def _spill_run(d, path, feed, env, want, threads, smi, inputs=INPUTS,
                     f"slots of {per_bucket} give {total // n_batches}")
         feed_text = (f"; H2D {hm.group(1)} bytes/batch ({hm.group(2)} slots, "
                      f"{n_batches} batches, per bucket {per_bucket}, "
-                     f"{n_rev} reverse of {hm.group(5)} bytes)")
+                     f"{n_rev} reverse of {hm.group(5)} bytes); "
+                     f"{_graphs_text(err, f'e2e {path}')}")
     else:
         pm = _PYFEED.search(err)
         require(pm is not None, f"e2e {path}: no Python feed line")
@@ -1888,11 +2066,15 @@ def phase_e2e(smi, inputs):
 # headline forward leg on resident slots, and the table-step diagnostic.
 BENCH_LAUNCHES = (("fwd", "cleanup_and_compress"), ("fwd", "window_match"),
                   ("rev_fwd", "cleanup_and_compress"),
-                  ("rev_fwd", "window_match"), ("fwd_table", "match_run"))
+                  ("rev_fwd", "window_match"), ("fwd_table", "match_run"),
+                  ("fwd_eager", "window_match"),
+                  ("rev_fwd_eager", "window_match"),
+                  ("rev_devshift_chain", "match_run"))
 BENCH_POSITIVE = ("value", "t_fwd_ms", "t_fwd_device_ms", "t_rev_fwd_ms",
                   "t_rev_fwd_device_ms", "baseline_reads_per_s",
                   "feed_reads_per_s", "e2e_reads_per_s", "lone_call_ms",
-                  "host_probe_us")
+                  "host_probe_us", "t_fwd_eager_ms", "t_rev_fwd_eager_ms",
+                  "t_fwd_eager_device_ms", "lone_call_eager_ms")
 BENCH_E2E = ("feed_reads_per_s", "e2e_reads_per_s", "e2e_wall_s",
              "e2e_n_primary", "e2e_scenario", "feed_reads_per_s_runs",
              "e2e_reads_per_s_runs", "e2e_warmup_wall_s")
@@ -1929,6 +2111,11 @@ def phase_bench(name, smi_line):
     launches = line["kernel_launches_per_call"]
     for leg, kernel in BENCH_LAUNCHES:
         require(launches[leg][kernel] > 0, f"bench {leg}: no {kernel} launch")
+    # a replay counts the launches its graph captured: the eager step's
+    for leg in ("fwd", "rev_fwd"):
+        require(launches[leg] == launches[f"{leg}_eager"],
+                f"bench {leg}: launches per replay {launches[leg]}, per eager "
+                f"call {launches[f'{leg}_eager']}")
     for key in BENCH_POSITIVE:
         v = line[key]
         require(isinstance(v, (int, float)) and math.isfinite(v) and v > 0,
@@ -1939,9 +2126,11 @@ def phase_bench(name, smi_line):
     require(not missing, f"bench line lacks {missing}")
     log(f"bench: {wall:.1f} s; value {line['value']} reads/s (spread "
         f"{line['value_spread']}, vs_baseline {line['vs_baseline']}), t_fwd "
-        f"{line['t_fwd_ms']} ms "
-        f"sustained / {line['t_fwd_device_ms']} ms device (busy share "
-        f"{line['device_busy_share']}), feed {line['feed_reads_per_s']} "
+        f"{line['t_fwd_ms']} ms sustained (graph) / {line['t_fwd_eager_ms']} "
+        f"ms (eager) / {line['t_fwd_device_ms']} ms device (busy share "
+        f"{line['device_busy_share']}), lone call {line['lone_call_ms']} ms "
+        f"(graph) / {line['lone_call_eager_ms']} ms (eager), feed "
+        f"{line['feed_reads_per_s']} "
         f"reads/s, e2e {line['e2e_reads_per_s']} reads/s; launches per call "
         f"{json.dumps(launches)}")
     return line
@@ -2029,10 +2218,11 @@ def main() -> int:
                 rev_arrays = hifi_batch(rng)
                 inputs = take_inputs(pending)
             kres = phase_kernels(rng, rev_arrays)
-            step_launches, in_step = phase_forward(rng, rev_arrays, smi_line)
+            step_launches, in_step, graph_in_step = phase_forward(
+                rng, rev_arrays, smi_line)
             t0 = time.perf_counter()
-            spill_launches, spill_in_step = phase_spill_steps(
-                smi_line, inputs["spill"])
+            spill_launches, spill_in_step, spill_graph_in_step = (
+                phase_spill_steps(smi_line, inputs["spill"]))
             log(f"spill: phase 4b took {time.perf_counter() - t0:.1f} s")
             e2e = phase_e2e(smi_line, inputs)
         phase_bench(name, smi_line)
@@ -2077,6 +2267,11 @@ def main() -> int:
             "bytes": nbytes,
             "launches_per_batch": step_launches["resident"][kernel],
             "step_ms": step[0] if step else None,
+            "replay_step_ms": {key: t[kernel][0]
+                               for key, t in (
+                                   *graph_in_step.items(),
+                                   *spill_graph_in_step.items())
+                               if kernel in t},
             "launches_by_path": {path: e2e[path][kernel] for path in e2e},
             "spill_launches_per_batch": {
                 key: n.get(kernel, 0) for key, n in spill_launches.items()},

@@ -19,15 +19,20 @@ genome resident on the device, packed read rows; kernels 1 and 3); under
 ``PTPU_BENCH_CPU=1`` it is the table step ``fwd_batch`` on the CPU, as the
 JAX bench picks per backend.
 
-Timing: after three warm-up calls (kernel build, allocator, first launch),
-each pass makes back-to-back eager calls on device-resident inputs for
+Timing: the step runs as the native feed runs it, compiled
+(``models/compiled.py``: captured once as a CUDA graph, one replay a call;
+on the CPU the eager step), and beside it eagerly (the ``*_eager_*``
+fields, the protocol of the first bench).  After three warm-up calls, each
+pass makes back-to-back calls on device-resident inputs for
 ``PASS_SECONDS`` of host time, between two CUDA events recorded after a
 synchronize; elapsed over the calls.  That is the sustained time per batch
 a feed that keeps the card busy gets, host launch overhead included.  Per
-run, passes fwd, rev, fwd, rev, best of the passes per leg; the headline is
-the median run (``value_runs`` and ``t_*_ms_runs`` hold every run,
-``*_spread`` their max over min).  ``torch.profiler`` over a few more calls
-gives the device time per call.
+run, one pass of each leg in turn, twice, best of the passes per leg; the
+headline is the median run (``value_runs`` and ``t_*_ms_runs`` hold every
+run, ``*_spread`` their max over min).  ``torch.profiler`` over a few more
+calls gives the device time per call, which it sees inside a replay as in
+an eager call.  The lone calls time one batch from host arrays: compiled
+through the pinned staging of ``parallel/mesh.ShardedStep``, and eager.
 
 The feed and end-to-end fields come from a child process that runs the
 port's CLI (``--device cuda --feed native``, ``--device cpu`` under
@@ -246,6 +251,20 @@ class Leg:
             if dev:
                 return sum(e.time_range.elapsed_us() for e in dev) / 1e6 / PROFILED_CALLS
         raise RuntimeError("torch.profiler recorded no device activity")
+
+
+def timed_steps(kind, kw, inputs, genome=None):
+    """The step the bench times, as (compiled, eager) callables over the
+    same inputs already on the device: one replay of the step compiled
+    over static copies of ``inputs`` (``models/compiled.py``; the eager
+    step itself on the CPU), and one eager call on ``inputs``.  Both return
+    the step's output dict."""
+    from portello_tpu_torch.models.compiled import capture, step_function
+
+    graph = capture(kind, kw, inputs, genome)
+    fn = step_function(kind, kw)
+    extra = () if genome is None else (genome,)
+    return graph.replay, lambda: fn(*inputs, *extra)
 
 
 def host_oracle_time(items_fwd, n_sample):
@@ -591,16 +610,17 @@ def main():
     import torch
 
     from portello_tpu_torch.kernels.resident import genome_tensor
+    from portello_tpu_torch.models.compiled import StepCache
     from portello_tpu_torch.models.pipeline_model import (
         batch_from_numpy,
         bucket_kwargs,
         fwd_batch,
         fwd_batch_resident,
         resident_batch_from_numpy,
-        rev_batch,
         rev_batch_from_numpy,
     )
     from portello_tpu_torch.ops import native_core
+    from portello_tpu_torch.parallel.mesh import sharded_step
     from portello_tpu_torch.pipeline.native_feed import host_shift_routing
     from portello_tpu_torch.testutil.batchgen import HIFI_BUCKET
 
@@ -666,47 +686,55 @@ def main():
     if resident:
         res_rev_np, _ = resident_timing_args(rev_fwd_items, rng, table_mb)
         dev_res_rev = resident_batch_from_numpy(res_rev_np, dev)
-        fwd_leg = Leg(lambda: fwd_batch_resident(*dev_res_fwd, genome, **kw), cuda)
-        rev_leg = Leg(lambda: fwd_batch_resident(*dev_res_rev, genome, **kw), cuda)
+        step_kind, step_genome = "fwd_resident", genome
+        fwd_in, rev_in = dev_res_fwd, dev_res_rev
         graph = "resident"
     else:
-        dev_fwd = batch_from_numpy(fwd_items, dev)
-        dev_rev_fwd = batch_from_numpy(rev_fwd_items, dev)
-        fwd_leg = Leg(lambda: fwd_batch(*dev_fwd, **kw), cuda)
-        rev_leg = Leg(lambda: fwd_batch(*dev_rev_fwd, **kw), cuda)
+        step_kind, step_genome = "fwd", None
+        fwd_in = batch_from_numpy(fwd_items, dev)
+        rev_in = batch_from_numpy(rev_fwd_items, dev)
         graph = "table"
+    fwd_step, fwd_eager = timed_steps(step_kind, kw, fwd_in, step_genome)
+    rev_step, rev_eager = timed_steps(step_kind, kw, rev_in, step_genome)
+    # the compiled legs (what the native feed runs) and the eager protocol
+    legs = {"fwd": Leg(fwd_step, cuda), "rev_fwd": Leg(rev_step, cuda),
+            "fwd_eager": Leg(fwd_eager, cuda),
+            "rev_fwd_eager": Leg(rev_eager, cuda)}
 
-    # Sustained per-batch times, interleaved passes (fwd, rev, fwd, rev),
-    # best of the passes per leg; the whole repeats PTPU_BENCH_RUNS times
-    # and the headline is the median run.
+    # Sustained per-batch times, interleaved passes (each leg in turn,
+    # twice), best of the passes per leg; the whole repeats
+    # PTPU_BENCH_RUNS times and the headline is the median run.
     n_runs = max(int(os.environ.get("PTPU_BENCH_RUNS", "3" if cuda else "1")), 1)
     n_passes = 2
-    run_pairs, probes = [], []
+    run_times, probes = [], []
     for run_i in range(n_runs):
-        t_f, t_r = [], []
+        t = {name: [] for name in legs}
         for _ in range(n_passes):
-            t_f.append(fwd_leg.sustained())
-            t_r.append(rev_leg.sustained())
-        run_pairs.append((min(t_f), min(t_r)))
+            for name, leg in legs.items():
+                t[name].append(leg.sustained())
+        run_times.append({name: min(ts) for name, ts in t.items()})
         probes.append(host_probe_us())
-        _log(f"run {run_i + 1}/{n_runs}: t_fwd={run_pairs[-1][0] * 1e3:.3f} ms "
-             f"t_rev_fwd={run_pairs[-1][1] * 1e3:.3f} ms "
-             f"host probe={probes[-1]:.2f} us")
+        _log(f"run {run_i + 1}/{n_runs}: " + " ".join(
+            f"t_{name}={ts * 1e3:.3f} ms" for name, ts in run_times[-1].items())
+            + f" host probe={probes[-1]:.2f} us")
+    run_pairs = [(r["fwd"], r["rev_fwd"]) for r in run_times]
 
-    launches = {"fwd": fwd_leg.launches_per_call(),
-                "rev_fwd": rev_leg.launches_per_call()}
+    launches = {name: leg.launches_per_call() for name, leg in legs.items()}
     t_fwd_dev = t_rev_dev = t_fwd_table = t_rev_devshift = None
+    t_fwd_eager_dev = t_rev_eager_dev = None
     if cuda:
-        t_fwd_dev = fwd_leg.device_seconds()
-        t_rev_dev = rev_leg.device_seconds()
-        # Diagnostics, one pass each: the table step (the native feed's
-        # PTPU_RESIDENT=0 slots) and the device-shift reverse chain (the
-        # PTPU_HOST_SHIFT=0 routing), both on table slots.
-        dev_fwd = batch_from_numpy(fwd_items, dev)
-        table_leg = Leg(lambda: fwd_batch(*dev_fwd, **kw), cuda)
+        t_fwd_dev = legs["fwd"].device_seconds()
+        t_rev_dev = legs["rev_fwd"].device_seconds()
+        t_fwd_eager_dev = legs["fwd_eager"].device_seconds()
+        t_rev_eager_dev = legs["rev_fwd_eager"].device_seconds()
+        # Diagnostics, one pass each, compiled: the table step (the native
+        # feed's PTPU_RESIDENT=0 slots) and the device-shift reverse chain
+        # (the PTPU_HOST_SHIFT=0 routing), both on table slots.
+        table_leg = Leg(timed_steps("fwd", kw, batch_from_numpy(
+            fwd_items, dev))[0], cuda)
         t_fwd_table = table_leg.sustained()
-        dev_rev = rev_batch_from_numpy(rev_items, dev)
-        chain_leg = Leg(lambda: rev_batch(*dev_rev, **kw), cuda)
+        chain_leg = Leg(timed_steps("rev", kw, rev_batch_from_numpy(
+            rev_items, dev))[0], cuda)
         t_rev_devshift = chain_leg.sustained()
         launches["fwd_table"] = table_leg.launches_per_call()
         launches["rev_devshift_chain"] = chain_leg.launches_per_call()
@@ -728,25 +756,38 @@ def main():
     t_fwd, t_rev_fwd = run_pairs[med_i]
     reads_per_s = batch / run_mixes[med_i]
 
-    # Production calls from host arrays, one at a time: the slot arrays' H2D
-    # copies, the step, and n_out back to the host (the genome already
-    # resident), each on the host clock after a warm-up call; the median,
-    # less the sustained step time.
+    # Production calls from host arrays, one at a time, each on the host
+    # clock after a warm-up call (the genome already resident).  Compiled,
+    # as the native feed dispatches a batch: the slot arrays into pinned
+    # staging, their copy to the card, one replay and every output field
+    # back to pinned host buffers (``parallel/mesh.ShardedStep``).  Eager:
+    # the slot arrays' pageable copies, the eager step and n_out back.
     if resident:
-        def _prod_call():
+        host_in, lone_genomes = res_fwd_np, [genome]
+
+        def _eager_call():
             args = resident_batch_from_numpy(res_fwd_np, dev)
             return fwd_batch_resident(*args, genome, **kw)["n_out"].cpu()
     else:
-        def _prod_call():
+        host_in, lone_genomes = fwd_items, None
+
+        def _eager_call():
             return fwd_batch(*batch_from_numpy(fwd_items, dev), **kw)["n_out"].cpu()
-    _prod_call()
-    lone = []
-    for _ in range(LONE_CALLS):
-        t0 = time.perf_counter()
-        _prod_call()
-        lone.append(time.perf_counter() - t0)
-    lone_q = statistics.quantiles(lone, n=4)
-    dispatch_overhead = statistics.median(lone) - t_fwd
+    lone_step = sharded_step(StepCache(), step_kind, [dev], batch, kw,
+                             lone_genomes)
+
+    def _lone(call):
+        call()
+        ts = []
+        for _ in range(LONE_CALLS):
+            t0 = time.perf_counter()
+            call()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts), statistics.quantiles(ts, n=4)
+
+    lone, lone_q = _lone(lambda: lone_step.submit(*host_in).wait())
+    lone_eager, lone_eager_q = _lone(_eager_call)
+    dispatch_overhead = lone - t_fwd
 
     host_rps = host_oracle_time(fwd_items, n_sample=min(24, batch))
     native_mix_1t, _ = native_mix_time_median5(
@@ -755,7 +796,7 @@ def main():
     )
     native_1 = native_baseline_time(fwd_items, kw["max_out"], 1)
     native_n = native_baseline_time(fwd_items, kw["max_out"], nthreads)
-    timing = ("CUDA events around back-to-back eager calls"
+    timing = ("CUDA events around back-to-back CUDA graph replays"
               if cuda else "host clock around back-to-back eager calls on the CPU")
     baseline_rps = native_mix_1t * nthreads
     vs_baseline = reads_per_s / baseline_rps
@@ -771,13 +812,16 @@ def main():
     )
     protocol = (
         f"{'cuda-events' if cuda else 'host-clock'}: {WARMUP_CALLS} warm-up "
-        f"calls, then back-to-back eager calls on device-resident inputs "
-        f"for {PASS_SECONDS} s of host time, elapsed / calls (host launch "
-        f"overhead included); best of {n_passes} interleaved passes per run, "
-        f"median of {n_runs} runs"
+        f"calls, then back-to-back calls on device-resident inputs for "
+        f"{PASS_SECONDS} s of host time, elapsed / calls (host launch "
+        f"overhead included): t_* one CUDA graph replay a call "
+        f"({'captured' if cuda else 'on the CPU the eager step'}), "
+        f"t_*_eager_* eager calls; best of {n_passes} interleaved passes "
+        f"per run, median of {n_runs} runs"
         + (f"; device time: torch.profiler over {PROFILED_CALLS} calls"
            if cuda else "")
-        + f"; dispatch: median of {LONE_CALLS} lone calls from host arrays"
+        + f"; lone calls: median of {LONE_CALLS} from host arrays, "
+        "compiled through pinned staging and eager"
         + f"; host probe: median of {PROBE_TRIES} {PROBE_LOOP}-iteration "
         "Python loops after each run's passes"
     )
@@ -816,7 +860,15 @@ def main():
         "t_rev_fwd_ms_spread": _spread([tr for _, tr in run_pairs]),
         "t_rev_fwd_device_ms": _ms(t_rev_dev),
         "t_rev_devshift_chain_ms": _ms(t_rev_devshift),
-        "calls_per_pass": round(fwd_leg.calls / (n_runs * n_passes), 1),
+        **{f"t_{leg}_ms{suffix}": value
+           for leg in ("fwd_eager", "rev_fwd_eager")
+           for suffix, value in (
+               ("", _ms(run_times[med_i][leg])),
+               ("_runs", [_ms(r[leg]) for r in run_times]),
+               ("_spread", _spread([r[leg] for r in run_times])))},
+        "t_fwd_eager_device_ms": _ms(t_fwd_eager_dev),
+        "t_rev_fwd_eager_device_ms": _ms(t_rev_eager_dev),
+        "calls_per_pass": round(legs["fwd"].calls / (n_runs * n_passes), 1),
         "host_probe_us": round(probes[med_i], 3),
         "host_probe_us_runs": [round(p, 3) for p in probes],
         "host_cpu": host_cpu(),
@@ -826,8 +878,11 @@ def main():
         ),
         "kernel_launches_per_call": launches,
         "dispatch_overhead_ms": _ms(dispatch_overhead),
-        "lone_call_ms": _ms(statistics.median(lone)),
+        "lone_call_ms": _ms(lone),
         "lone_call_ms_quartiles": [_ms(lone_q[0]), _ms(lone_q[2])],
+        "lone_call_eager_ms": _ms(lone_eager),
+        "lone_call_eager_ms_quartiles": [_ms(lone_eager_q[0]),
+                                         _ms(lone_eager_q[2])],
         "host_shift_1t_reads_per_s": round(host_shift_1t_rps, 1),
         "host_shift_nt_reads_per_s": round(host_shift_nt_rps, 1),
         "host_oracle_reads_per_s": round(host_rps, 1),

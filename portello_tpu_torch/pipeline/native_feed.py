@@ -29,12 +29,17 @@ card computes batch N while the scanner preps batch N+1.
 Every batch goes through a sharded step of ``parallel/mesh.py``.  Its mesh
 is ``device`` alone, or with ``PTPU_SHARD=1`` the local devices: each batch
 then splits on dim 0, every device runs the whole step on its rows, with
-its own replica of the resident genome, and the outputs join on the first
-device before ``post``.
+its own replica of the resident genome, and each shard's outputs go
+straight into its rows of the batch's host outputs.
 
-A slot stays frozen only until its ``ptscan_post_results`` call.  The H2D
-copies here, one per shard, are plain pageable copies, which have consumed
-the slot when ``.to(device)`` returns.
+Each batch is one asynchronous dispatch: its slot's arrays are copied into
+pinned staging buffers (so the slot, which stays frozen only until its
+``ptscan_post_results`` call, is free as soon as ``dispatch`` returns), and
+on each shard's stream the copy to the card, one CUDA graph replay of the
+step compiled for its kind and bucket (``models/compiled.py``) and the
+copy of its outputs into pinned host buffers are queued without a wait.
+``post`` waits on the batch's events.  Every slot is ``batch_size`` rows,
+so each kind and bucket is one shape and one graph per shard.
 """
 
 from __future__ import annotations
@@ -55,15 +60,14 @@ from portello_tpu_torch.kernels.resident import (
     build_global_ref,
     split_global_base,
 )
+from portello_tpu_torch.models.compiled import StepCache
 from portello_tpu_torch.models.pipeline_model import (
     DEFAULT_BUCKETS,
     bucket_kwargs,
 )
 from portello_tpu_torch.parallel.mesh import (
-    make_sharded_fwd_resident_step,
-    make_sharded_fwd_step,
-    make_sharded_rev_step,
     replicate,
+    sharded_step,
     sharding_mesh,
 )
 from portello_tpu_torch.pipeline.read_scan import get_alignment_file_header
@@ -720,11 +724,14 @@ def scan_and_remap_reads_native(
     # in emission order (the C++ side queues them FIFO).
     in_flight: collections.deque = collections.deque()
 
+    # The compiled steps of this run (one CUDA graph per step kind, bucket
+    # and mesh position) and their staging buffers; freed with the run.
+    cache = StepCache()
+
     def dispatch(d):
         nonlocal h2d_bytes, h2d_rev, n_rev
         bcfg = buckets[int(d.bucket)]
         per_bucket[int(d.bucket)] += 1
-        kw = bucket_kwargs(bcfg)
         # fixed shape: slots are always batch_size rows (EOF partials are
         # pre-padded by the C++ side)
         if d.is_rev:
@@ -732,27 +739,29 @@ def scan_and_remap_reads_native(
                 raise RuntimeError(
                     "native feed emitted a reverse batch in resident slot mode"
                 )
-            args = _rev_slot_arrays(d, bcfg, batch_size)
-            out = make_sharded_rev_step(mesh, **kw)(*args)
+            kind, args = "rev", _rev_slot_arrays(d, bcfg, batch_size)
         elif resident:
+            kind = "fwd_resident"
             args = _resident_slot_arrays(d, bcfg, batch_size, res_goff)
-            out = make_sharded_fwd_resident_step(mesh, **kw)(*args, genomes)
         else:
-            args = _slot_arrays(d, bcfg, batch_size)
-            out = make_sharded_fwd_step(mesh, **kw)(*args)
-        # each shard's H2D copy is a pageable copy that has consumed the slot
-        # when it returns; the genome stays where it is
+            kind, args = "fwd", _slot_arrays(d, bcfg, batch_size)
+        step = sharded_step(cache, kind, mesh, batch_size, bucket_kwargs(bcfg),
+                            genomes if resident else None)
+        # the slot's arrays are copied into the step's staging buffers
+        # before submit returns; the copies to the device, the replays and
+        # the copies back are queued, not waited on
+        handle = step.submit(*args)
         nbytes = sum(a.nbytes for a in args)
         h2d_bytes += nbytes
         if d.is_rev:
             n_rev += 1
             h2d_rev += nbytes
-        return out
+        return handle
 
-    def post(out):
+    def post(handle):
         nonlocal t_dev, t_post
         t0 = time.perf_counter()
-        host = {k: v.cpu().numpy() for k, v in out.items()}
+        host = handle.wait()
         codes = np.ascontiguousarray(host["codes"], np.int32)
         olens = np.ascontiguousarray(host["lens"], np.int32)
         n_out = np.ascontiguousarray(host["n_out"], np.int32)
@@ -833,6 +842,9 @@ def scan_and_remap_reads_native(
             k: v - launches_before[k] for k, v in _cuda.launch_counts.items()
         },
         "shards": len(mesh),
+        "compiled_steps": len(cache.graphs()),
+        "replays": sum(g.replays for g in cache.graphs()),
+        "t_capture": sum(g.capture_seconds for g in cache.graphs()),
     }
     logger.info(
         f"Lifted {stats['n_primary']} primary reads: "
@@ -845,6 +857,13 @@ def scan_and_remap_reads_native(
         f"({'resident' if resident else 'table'} slots, {n_batches} batches, "
         f"rev_batches {n_rev} of {stats['h2d_bytes_per_rev_batch']} bytes, "
         f"batches per bucket {per_bucket})"
+    )
+    logger.info(
+        f"Compiled steps: {stats['compiled_steps']} "
+        f"({'CUDA graphs' if mesh[0].type == 'cuda' else 'eager'} on "
+        f"{', '.join(sorted({str(d) for d in mesh}))}), {stats['replays']} "
+        f"replays for {n_batches} batches over {len(mesh)} shards; warm-up "
+        f"and capture {stats['t_capture']:.3f} s"
     )
     if os.environ.get("PTPU_FEED_TIMING"):
         logger.info(

@@ -36,6 +36,11 @@ TINY = dict(PTPU_BENCH_BATCH="8", PTPU_BENCH_READLEN="2000",
 # The keys the port's line adds to the JAX bench's.
 ADDED_KEYS = {"t_fwd_device_ms", "t_rev_fwd_device_ms", "device_busy_share",
               "kernel_launches_per_call", "power_limit"}
+# The eager protocol's fields beside the compiled step's.
+EAGER_KEYS = {f"t_{leg}_eager_ms{suffix}" for leg in ("fwd", "rev_fwd")
+              for suffix in ("", "_runs", "_spread")} | {
+    "lone_call_eager_ms", "lone_call_eager_ms_quartiles",
+    "t_fwd_eager_device_ms", "t_rev_fwd_eager_device_ms"}
 
 
 def _items(bench, bucket, seed):
@@ -172,7 +177,8 @@ def test_bench_on_the_cpu_prints_every_jax_key():
     lines = p.stdout.strip().splitlines()
     assert len(lines) == 1, p.stdout
     line = json.loads(lines[0])
-    assert jax_keys | ADDED_KEYS <= set(line), sorted(jax_keys - set(line))
+    assert jax_keys | ADDED_KEYS | EAGER_KEYS <= set(line), sorted(
+        (jax_keys | ADDED_KEYS | EAGER_KEYS) - set(line))
     assert line["device"] == "cpu" and line["graph"] == "table"
     assert line["batch"] == 8 and line["e2e_scenario"] == "30x2kb"
     for key in ("value", "t_fwd_ms", "t_rev_fwd_ms", "baseline_reads_per_s",
@@ -180,16 +186,21 @@ def test_bench_on_the_cpu_prints_every_jax_key():
         assert line[key] > 0, key
     # no CPU number under a device key; the plain versions ran, no kernel
     for key in ("t_fwd_device_ms", "t_rev_fwd_device_ms", "device_busy_share",
-                "power_limit", "t_fwd_table_ms", "t_rev_devshift_chain_ms"):
+                "power_limit", "t_fwd_table_ms", "t_rev_devshift_chain_ms",
+                "t_fwd_eager_device_ms", "t_rev_fwd_eager_device_ms"):
         assert line[key] is None, key
+    for key in ("t_fwd_eager_ms", "t_rev_fwd_eager_ms", "lone_call_eager_ms"):
+        assert line[key] > 0, key
     launches = line["kernel_launches_per_call"]
-    assert set(launches) == {"fwd", "rev_fwd"}
+    assert set(launches) == {"fwd", "rev_fwd", "fwd_eager", "rev_fwd_eager"}
     assert all(n == 0 for leg in launches.values() for n in leg.values())
     assert len(line["e2e_reads_per_s_runs"]) == line["e2e_repeats"] == 3
     assert line["e2e_warmup_wall_s"] > 0 and line["e2e_n_primary"] > 0
     # one run: its pass lasted PASS_SECONDS, its spread is 1
     assert line["t_fwd_ms_runs"] == [line["t_fwd_ms"]]
+    assert line["t_fwd_eager_ms_runs"] == [line["t_fwd_eager_ms"]]
     assert line["value_spread"] == line["t_fwd_ms_spread"] == 1.0
+    assert line["t_rev_fwd_eager_ms_spread"] == 1.0
     assert line["calls_per_pass"] >= 1
     assert line["host_probe_us_runs"] == [line["host_probe_us"]]
     assert line["host_probe_us"] > 0
@@ -197,6 +208,35 @@ def test_bench_on_the_cpu_prints_every_jax_key():
     assert line["baseline_protocol"].startswith("median5-1t-native-mix")
     lo, hi = line["lone_call_ms_quartiles"]
     assert 0 < lo <= line["lone_call_ms"] <= hi
+    lo, hi = line["lone_call_eager_ms_quartiles"]
+    assert 0 < lo <= line["lone_call_eager_ms"] <= hi
+
+
+@pytest.mark.parametrize("leg", ["fwd", "rev_fwd", "resident"])
+def test_compiled_step_equals_eager_protocol(items, leg):
+    """On the CPU the bench's compiled step (``timed_steps``) is the eager
+    step on static copies of its inputs: both give the same fields on the
+    bench's items, twice over, and each equals the JAX step's."""
+    fwd, rev, res, words = items
+    if leg == "resident":
+        kind, genome = "fwd_resident", genome_tensor(words, "cpu")
+        inputs = tpm.resident_batch_from_numpy(res, "cpu")
+    else:
+        kind, genome = "fwd", None
+        arrays = fwd if leg == "fwd" else _shifted_rev(rev, port_native)
+        inputs = tpm.batch_from_numpy(arrays, "cpu")
+    compiled, eager = port_bench.timed_steps(kind, KW, inputs, genome)
+    want = eager()
+    for _ in range(2):
+        got = compiled()
+        assert set(got) == set(want)
+        for key in want:
+            assert got[key].dtype == want[key].dtype, key
+            assert torch.equal(got[key], want[key]), key
+    if leg != "resident":
+        jax_out = jpm.fwd_batch(*arrays, mm=False, **KW)
+        for key in want:
+            assert np.array_equal(want[key].numpy(), np.asarray(jax_out[key]))
 
 
 def test_bench_without_a_card_exits_nonzero():
