@@ -43,7 +43,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    the captured counts and to the eager step's; ms per call of the replay
    and of the eager step, device ms, a lone call from host arrays through
    the staging beside an eager one, and the hand kernels inside a replay.
-   The sharded steps above are these compiled steps.
+   The sharded steps above are these compiled steps.  Then the Python
+   feed's compiled group steps (``check_group_steps``): groups of 37, 300
+   and 517 of the batch's items, forward and reverse, padded to 64, 512
+   and 1024 rows and replayed, rows ``[:b]`` equal to the eager step at b
+   rows on the card and on the CPU, launches per replay the eager step's.
 4b. spill  -- the spill path's steps at B=512: ~20 kb items at 129-256 ops
    in the mid bucket and 25-60 kb items in the wide bucket
    (``testutil/spill.spill_jobs``).  Per bucket
@@ -75,8 +79,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    (gloo rendezvous) whose shards ``merge_bams`` joins, and ``--profile``,
    whose Chrome trace must name kernels 1 and 3.  Each run's merged records
    must equal the host path's, and each worker's and host's log must show
-   launches of kernels 1 and 3.  Every native-feed process must log that it
-   ran its steps as CUDA graphs, one replay per batch and shard.
+   launches of kernels 1 and 3.  Every process of either feed must log that
+   it ran its steps as CUDA graphs, one replay per batch and shard; the
+   Python feed's, at most one graph per (kind, bucket, rows) it met.
 5b. spill e2e -- ``--device cuda`` on the WGS-shaped scenario
    (``testutil/spill.build_scenario``: 2-60 kb reads) on the native feed in
    resident and table slots and under device-shift routing, and on the
@@ -1034,6 +1039,94 @@ def check_graphs(name, kw, cases, launches, times, smi) -> dict:
     return in_step
 
 
+# The group sizes of the Python feed's compiled group steps in phase 4: a
+# group padded to 64 rows, to 512 and to 1024.
+GROUP_SIZES = (37, 300, 517)
+
+
+def check_group_steps(rev_arrays, kw, launches, smi) -> None:
+    """The Python feed's compiled group steps (``pipeline_model.group_step``
+    over ``group_inputs``, as its ``DeviceEngine`` runs them) on phase 4's
+    items at each of ``GROUP_SIZES``, forward (table slots) and reverse:
+    each group, padded with empty rows to ``group_rows(b)``, is captured
+    and replayed on the card; its rows ``[:b]`` equal the eager step at
+    exactly b rows on the card and on the CPU, on every field (tolerance
+    0), and its replay launches what the eager step launches
+    (``launches``).  Logs the seconds the check takes."""
+    import numpy as np
+    import torch
+
+    from portello_tpu_torch.graft_entry import require_equal
+    from portello_tpu_torch.kernels import _cuda
+    from portello_tpu_torch.models.compiled import StepCache
+    from portello_tpu_torch.models.pipeline_model import (
+        DEFAULT_BUCKETS,
+        batch_from_numpy,
+        fwd_batch,
+        group_inputs,
+        group_rows,
+        group_step,
+        rev_batch,
+        rev_batch_from_numpy,
+    )
+    from portello_tpu_torch.testutil.batchgen import item_devs
+
+    t0 = time.perf_counter()
+    bcfg = DEFAULT_BUCKETS[0]
+    cuda = torch.device("cuda")
+    n = max(GROUP_SIZES)
+    # phase 4's 512 items, then the first of them again, rolled by 7 rows
+    more = tuple(np.concatenate([a, r[:n - len(a)]])
+                 for a, r in zip(rev_arrays, _rolled(rev_arrays)))
+    cache = StepCache()
+    cpu_s = 0.0
+    texts = []
+    for is_rev in (False, True):
+        mode = "rev" if is_rev else "table"
+        step, convert = ((rev_batch, rev_batch_from_numpy) if is_rev
+                         else (fwd_batch, batch_from_numpy))
+        for b in GROUP_SIZES:
+            arrays = tuple(a[:b] for a in more)
+            if not is_rev:  # fwd_batch's inputs: without win_base, contig_win
+                arrays = arrays[:4] + arrays[6:]
+            padded = group_inputs(is_rev, bcfg, item_devs(arrays, is_rev),
+                                  group_rows(b))
+            _cuda.reset_launch_counts()  # capture and warm-up uncounted
+            got = group_step(cache, cuda, is_rev, bcfg, padded, b)
+            replayed = dict(_cuda.launch_counts)
+            want = step(*convert(arrays, cuda), **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want_cpu = step(*convert(arrays, "cpu"), **kw)
+            cpu_s += time.perf_counter() - t1
+            got = {k: torch.from_numpy(v) for k, v in got.items()}
+            what = f"group step {mode} b={b} ({group_rows(b)} rows)"
+            require_equal(got, want, f"{what} vs the eager step on the card")
+            require_equal(got, want_cpu, f"{what} vs the eager step on the CPU")
+            require(replayed == launches[mode],
+                    f"{what}: a replay launched {replayed}, the eager step "
+                    f"{launches[mode]}")
+            texts.append(f"{mode} b={b} in {group_rows(b)} rows "
+                         f"({int(want_cpu['mapped'].sum())} mapped, "
+                         f"{int(want_cpu['fallback'].sum())} flagged)")
+    stats = cache.stats()
+    graphs = cache.graphs()
+    require(stats["compiled_steps"] == 2 * len(GROUP_SIZES)
+            and all(g.graph for g in graphs)
+            and stats["replays"] == 2 * len(GROUP_SIZES),
+            f"group steps: {stats} for {2 * len(GROUP_SIZES)} groups")
+    log(f"group steps (the Python feed's, padded and compiled; {smi}): "
+        f"{'; '.join(texts)}: rows [:b] == the eager step at b rows on the "
+        f"card and on the CPU on all {len(got)} fields; launches per replay "
+        f"== the eager step's ({json.dumps(launches['table'])} table, "
+        f"{json.dumps(launches['rev'])} reverse); {stats['compiled_steps']} "
+        f"CUDA graphs, warm-up and capture {stats['t_capture']:.3f} s; CPU "
+        f"eager steps {cpu_s:.1f} s; the check took "
+        f"{time.perf_counter() - t0:.1f} s")
+    del cache, graphs
+    torch.cuda.empty_cache()
+
+
 def hifi_batch(rng):
     """B=512 HiFi items (18 kb) in the primary bucket, as ``rev_batch``'s
     inputs; without ``win_base`` and ``contig_win`` they are ``fwd_batch``'s."""
@@ -1190,6 +1283,7 @@ def phase_forward(rng, rev_arrays, smi):
                         "resident": (res_arrays, genome, res_args),
                         "rev": (rev_arrays, None, rev_args)},
         launches, times, smi).items()}
+    check_group_steps(rev_arrays, kw, launches, smi)
     del genome
     torch.cuda.empty_cache()
     phase_sharded(genome_np, kw,
@@ -1615,31 +1709,61 @@ def _cli(module, d, tag, device, extra=(), env_extra=None, inputs=INPUTS):
 _H2D = re.compile(r"H2D per batch: (\d+) bytes \((\w+) slots, (\d+) batches, "
                   r"rev_batches (\d+) of (\d+) bytes, batches per bucket "
                   r"\[([\d, ]+)\]\)")
-_PYFEED = re.compile(r"Python feed: (\d+) device batches, rev_batches (\d+)")
+_PYFEED = re.compile(r"Python feed: (\d+) device batches, rev_batches (\d+) "
+                     r"\((?:host|device)-shift routing\); groups by "
+                     r"kind/bucket/rows: (.+)")
 _COMPILED = re.compile(r"Compiled steps: (\d+) \((CUDA graphs|eager) on "
                        r"([^)]*)\), (\d+) replays for (\d+) batches over "
-                       r"(\d+) shards")
+                       r"(\d+) shards; warm-up and capture ([\d.]+) s")
 
 
 def _graphs_text(err, what, processes=1) -> str:
-    """Each of the ``processes`` native-feed processes whose log is ``err``
-    compiled its steps as CUDA graphs on the card and dispatched every
-    batch as one replay per shard; a summary of their ``Compiled steps``
-    lines."""
+    """Each of the ``processes`` processes (of either feed) whose log is
+    ``err`` compiled its steps as CUDA graphs on the card and dispatched
+    every batch as one replay per shard; a summary of their ``Compiled
+    steps`` lines."""
     found = _COMPILED.findall(err)
     require(len(found) == processes,
             f"{what}: {len(found)} 'Compiled steps' lines for {processes} "
             f"processes:\n{err[-3000:]}")
     texts = []
-    for graphs, how, devs, replays, batches, shards in found:
+    for graphs, how, devs, replays, batches, shards, capture_s in found:
         require(how == "CUDA graphs" and "cuda" in devs,
                 f"{what}: steps compiled as {how} on {devs}")
         require(int(replays) == int(batches) * int(shards),
                 f"{what}: {replays} replays for {batches} batches over "
                 f"{shards} shards")
         texts.append(f"{graphs} CUDA graphs, {replays} replays for "
-                     f"{batches} batches")
+                     f"{batches} batches, warm-up and capture {capture_s} s")
     return "; ".join(texts)
+
+
+def _python_feed_text(err, what) -> tuple[int, str]:
+    """The Python feed's own lines: its groups by kind, bucket and rows
+    (each row count a rung of ``group_rows``), their sum its device
+    batches, every batch one replay of a CUDA graph (``_graphs_text``) and
+    at most one graph per (kind, bucket, rows) met.  Returns the reverse
+    batches and a summary."""
+    pm = _PYFEED.search(err)
+    require(pm is not None, f"{what}: no Python feed line:\n{err[-3000:]}")
+    n_batches = int(pm.group(1))
+    groups = {shape: int(n) for shape, n in
+              (part.split(" x") for part in pm.group(3).split(", "))}
+    require(n_batches > 0 and sum(groups.values()) == n_batches,
+            f"{what}: groups {pm.group(3)} for {n_batches} device batches")
+    for shape in groups:
+        rows = int(shape.split("/")[2])
+        require(rows >= 64 and rows & (rows - 1) == 0,
+                f"{what}: a group of {rows} rows")
+    text = _graphs_text(err, what)
+    graphs, batches = (int(x) for x in _COMPILED.search(err).group(1, 5))
+    require(batches == n_batches,
+            f"{what}: {batches} compiled batches, {n_batches} device batches")
+    require(1 <= graphs <= len(groups),
+            f"{what}: {graphs} CUDA graphs for {len(groups)} (kind, bucket, "
+            "rows) met")
+    return int(pm.group(2)), (f"{n_batches} device batches, {pm.group(2)} "
+                              f"reverse; groups {pm.group(3)}; {text}")
 
 
 _SHARDING = re.compile(r"Sharding batches over (\d+) local devices")
@@ -1671,10 +1795,7 @@ def _feed_line(path, feed, err):
                 f"({hm.group(2)} slots), {n_rev} reverse batches of "
                 f"{hm.group(5)} bytes; {_graphs_text(err, f'e2e {path}')}")
     else:
-        pm = _PYFEED.search(err)
-        require(pm is not None, f"e2e {path}: no Python feed line:\n{err[-3000:]}")
-        n_rev = int(pm.group(2))
-        text = f"{pm.group(1)} device batches, {n_rev} reverse"
+        n_rev, text = _python_feed_text(err, f"e2e {path}")
     require((n_rev > 0) == devshift,
             f"e2e {path}: {n_rev} reverse batches under "
             f"{'device' if devshift else 'host'}-shift routing")
@@ -1887,9 +2008,7 @@ def _spill_run(d, path, feed, env, want, threads, smi, inputs=INPUTS,
                      f"{n_rev} reverse of {hm.group(5)} bytes); "
                      f"{_graphs_text(err, f'e2e {path}')}")
     else:
-        pm = _PYFEED.search(err)
-        require(pm is not None, f"e2e {path}: no Python feed line")
-        feed_text = f"; {pm.group(1)} device batches, {pm.group(2)} reverse"
+        feed_text = "; " + _python_feed_text(err, f"e2e {path}")[1]
     _log_lines(err, path, _TIMING_LINES + ("peak device memory:",))
     log(f"e2e {path} (--feed {feed}{''.join(f' {k}={v}' for k, v in env.items())}"
         f"{''.join(' ' + a for a in extra)}): --device cuda output == "

@@ -323,12 +323,18 @@ def _lift(settings: Settings, preloaded_reference, cmdline: str, logger) -> None
                 shard_plan=shard_plan,
             )
             if engine is not None:
+                from portello_tpu_torch.models.compiled import compiled_steps_line
+
                 stats = engine.stats
                 logger.info(
                     f"Python feed: {stats['batches']} device batches, "
                     f"rev_batches {stats['rev_batches']} "
-                    f"({'host' if engine.host_shift else 'device'}-shift routing)"
+                    f"({'host' if engine.host_shift else 'device'}-shift "
+                    "routing); groups by kind/bucket/rows: " + ", ".join(
+                        f"{k} x{n}" for k, n in sorted(stats["groups"].items()))
                 )
+                logger.info(compiled_steps_line(stats, [engine.device],
+                                                stats["batches"]))
                 logger.info(
                     f"kernel launches: {json.dumps(stats['kernel_launches'])}"
                 )

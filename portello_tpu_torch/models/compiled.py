@@ -244,6 +244,15 @@ class StepCache:
     def graphs(self) -> list[Captured]:
         return [e for e in self._entries.values() if isinstance(e, Captured)]
 
+    def stats(self) -> dict:
+        """The feeds' stats of these steps: ``compiled_steps`` (graphs
+        captured), ``replays`` and ``t_capture`` (seconds of warm-up and
+        capture)."""
+        graphs = self.graphs()
+        return {"compiled_steps": len(graphs),
+                "replays": sum(g.replays for g in graphs),
+                "t_capture": sum(g.capture_seconds for g in graphs)}
+
     def graph(self, kind: str, kw: dict, inputs, device, shard: int = 0,
               genome=None) -> Captured:
         """The step for ``kind``, ``kw``, the inputs' shapes, ``device``,
@@ -261,3 +270,13 @@ class StepCache:
         if entry is None:
             entry = self._entries[key] = make()
         return entry
+
+
+def compiled_steps_line(stats: dict, mesh, n_batches: int) -> str:
+    """The feeds' log line of their compiled steps (``StepCache.stats``)
+    over ``n_batches`` batches on ``mesh``."""
+    how = "CUDA graphs" if torch.device(mesh[0]).type == "cuda" else "eager"
+    return (f"Compiled steps: {stats['compiled_steps']} ({how} on "
+            f"{', '.join(sorted({str(d) for d in mesh}))}), {stats['replays']} "
+            f"replays for {n_batches} batches over {len(mesh)} shards; warm-up "
+            f"and capture {stats['t_capture']:.3f} s")

@@ -7,7 +7,8 @@ Port of ``portello_tpu.models.pipeline_model`` as batched PyTorch functions:
   ``fwd_batch_resident``);
 - the reverse step ``rev_batch``: the indel left shift on the reversed
   contig (``kernels/shift_kernel.py``), then the forward step;
-- ``DeviceEngine``, the batching executor of the Python feed.
+- ``DeviceEngine``, the batching executor of the Python feed, whose groups
+  run as compiled steps (``group_rows``, ``group_inputs``, ``group_step``).
 
 Under host-shift routing (``PTPU_HOST_SHIFT``, on by default) every batch,
 forward or reverse contig, runs one forward step: ``fwd_batch_resident`` in
@@ -241,6 +242,82 @@ def bucket_kwargs(bcfg: BucketConfig) -> dict:
     )
 
 
+# The fewest rows a Python-feed group runs at.
+MIN_GROUP_ROWS = 64
+
+
+def group_rows(b: int) -> int:
+    """The rows a Python-feed group of ``b`` items runs at: the smallest
+    power of two that is at least ``max(b, 64)``.  A group's size changes
+    with nearly every flush; padded to these few rungs, a run compiles one
+    step per (kind, bucket, rung) it meets."""
+    return 1 << (max(b, MIN_GROUP_ROWS) - 1).bit_length()
+
+
+def group_inputs(is_rev: bool, bcfg: BucketConfig, devs, rows: int
+                 ) -> tuple[np.ndarray, ...]:
+    """The step inputs of one Python-feed group at ``rows`` rows, in
+    ``rev_batch``'s positional order with ``is_rev``, else ``fwd_batch``'s.
+    Row i holds ``devs[i]``, one item's prepared inputs (``_Item.dev``); the
+    rows past ``len(devs)`` are empty, as the unused rows of a native slot
+    are: PAD ops, zero lengths and counts, INT32_MAX keys, -1 values and
+    zero windows."""
+    if len(devs) > rows:
+        raise ValueError(f"{len(devs)} items do not fit {rows} rows")
+    ops = np.full((rows, bcfg.max_ops), PAD, np.int32)
+    lens = np.zeros((rows, bcfg.max_ops), np.int32)
+    n_ops = np.zeros(rows, np.int32)
+    pos = np.zeros(rows, np.int32)
+    bk = np.full((rows, bcfg.max_blocks), INT32_MAX, np.int32)
+    bv = np.full((rows, bcfg.max_blocks), -1, np.int32)
+    nb = np.zeros(rows, np.int32)
+    ref_win = np.zeros((rows, bcfg.max_seq), np.uint8)
+    ref_base = np.zeros(rows, np.int32)
+    read_seq = np.zeros((rows, bcfg.max_seq), np.uint8)
+    if is_rev:
+        contig_win = np.zeros((rows, bcfg.max_seq), np.uint8)
+        win_base = np.zeros(rows, np.int32)
+    for i, d in enumerate(devs):
+        n = len(d["cigar"])
+        ops[i, :n] = d["cigar"][:, 0]
+        lens[i, :n] = d["cigar"][:, 1]
+        n_ops[i] = n
+        pos[i] = d["pos"]
+        k = len(d["keys"])
+        bk[i, :k] = d["keys"]
+        bv[i, :k] = d["vals"]
+        nb[i] = k
+        ref_win[i] = d["ref_win"]
+        ref_base[i] = d["ref_base"]
+        read_seq[i, : len(d["read_seq"])] = d["read_seq"]
+        if is_rev:
+            contig_win[i] = d["contig_win"]
+            win_base[i] = d["win_base"]
+    if is_rev:
+        return (ops, lens, n_ops, pos, win_base, contig_win, bk, bv, nb,
+                ref_win, ref_base, read_seq)
+    return (ops, lens, n_ops, pos, bk, bv, nb, ref_win, ref_base, read_seq)
+
+
+def group_step(cache, device, is_rev: bool, bcfg: BucketConfig, arrays,
+               b: int) -> dict:
+    """One Python-feed group through its compiled step: ``rev_batch`` with
+    ``is_rev``, else ``fwd_batch`` (table slots), over ``arrays``
+    (``group_inputs``) on ``device``.  The step is captured in ``cache`` (a
+    ``models.compiled.StepCache``) once per kind, bucket and row count, and
+    each group is one replay (on the CPU, the eager step on the same static
+    inputs).  Waits for the group and returns rows ``[:b]`` of every output
+    field as numpy arrays of their own."""
+    # mesh imports models.compiled, which imports this module
+    from portello_tpu_torch.parallel.mesh import sharded_step
+
+    step = sharded_step(cache, "rev" if is_rev else "fwd",
+                        [torch.device(device)], len(arrays[0]),
+                        bucket_kwargs(bcfg))
+    out = step.submit(*arrays).wait()
+    return {k: v[:b].copy() for k, v in out.items()}
+
+
 # ---------------------------------------------------------------------------
 # The Python feed's batch engine.  The host-side prep below is a copy of the
 # JAX package's (``_count_update_rows``, ``_Item``, ``DeviceEngine``): that
@@ -290,12 +367,17 @@ class DeviceEngine:
 
     ``submit(record, emit)`` queues a primary read; batches run when
     ``batch_size`` items accumulate; ``flush(emit)`` drains.  Each flush
-    runs one step per (bucket, orientation) group, with B the group's size:
-    ``fwd_batch``, or ``rev_batch`` for reverse-contig items under
-    device-shift routing (``host_shift=False`` or ``PTPU_HOST_SHIFT=0``).
+    runs one step per (bucket, orientation) group: ``fwd_batch``, or
+    ``rev_batch`` for reverse-contig items under device-shift routing
+    (``host_shift=False`` or ``PTPU_HOST_SHIFT=0``).  A group of B items is
+    padded with empty rows to ``group_rows(B)`` and runs as one replay of
+    the step compiled for its kind, bucket and row count (``group_step``);
+    the engine's ``StepCache`` holds those steps and is freed with it.
     Items that exceed every bucket, or that the step flags, are finished on
-    the exact host path.  ``stats`` counts items, batches and the kernel
-    launches of this engine's steps."""
+    the exact host path.  ``stats`` counts items, batches, the groups by
+    ``kind/bucket/rows``, the compiled steps (``compiled_steps``,
+    ``replays``, ``t_capture``, as the native feed names them) and the
+    kernel launches of this engine's steps."""
 
     def __init__(
         self,
@@ -326,9 +408,14 @@ class DeviceEngine:
             if host_shift is not None
             else os.environ.get("PTPU_HOST_SHIFT", "1") != "0"
         )
+        # models.compiled imports this module
+        from portello_tpu_torch.models.compiled import StepCache
+
+        self._cache = StepCache()
         self.stats = {
             "device_items": 0, "host_items": 0, "fallback_items": 0,
-            "batches": 0, "rev_batches": 0,
+            "batches": 0, "rev_batches": 0, "groups": {},
+            **self._cache.stats(),
             "kernel_launches": dict.fromkeys(_cuda.launch_counts, 0),
         }
         self._pending: list[tuple] = []  # (record, ordered_splits, [_Item])
@@ -506,56 +593,21 @@ class DeviceEngine:
                 if item.dev is not None:
                     by_group.setdefault((item.bucket, item.is_rev_contig), []).append(item)
         for (bucket, is_rev), items in by_group.items():
-            self._run_group(self.buckets[bucket], is_rev, items)
+            self._run_group(bucket, is_rev, items)
 
-    def _run_group(self, bcfg: BucketConfig, is_rev: bool, items: list[_Item]) -> None:
+    def _run_group(self, bucket: int, is_rev: bool, items: list[_Item]) -> None:
+        bcfg = self.buckets[bucket]
         b = len(items)
-        ops = np.full((b, bcfg.max_ops), PAD, np.int32)
-        lens = np.zeros((b, bcfg.max_ops), np.int32)
-        n_ops = np.zeros(b, np.int32)
-        pos = np.zeros(b, np.int32)
-        bk = np.full((b, bcfg.max_blocks), INT32_MAX, np.int32)
-        bv = np.full((b, bcfg.max_blocks), -1, np.int32)
-        nb = np.zeros(b, np.int32)
-        ref_win = np.zeros((b, bcfg.max_seq), np.uint8)
-        ref_base = np.zeros(b, np.int32)
-        read_seq = np.zeros((b, bcfg.max_seq), np.uint8)
-        if is_rev:
-            contig_win = np.zeros((b, bcfg.max_seq), np.uint8)
-            win_base = np.zeros(b, np.int32)
-        for i, item in enumerate(items):
-            d = item.dev
-            n = len(d["cigar"])
-            ops[i, :n] = d["cigar"][:, 0]
-            lens[i, :n] = d["cigar"][:, 1]
-            n_ops[i] = n
-            pos[i] = d["pos"]
-            k = len(d["keys"])
-            bk[i, :k] = d["keys"]
-            bv[i, :k] = d["vals"]
-            nb[i] = k
-            ref_win[i] = d["ref_win"]
-            ref_base[i] = d["ref_base"]
-            read_seq[i, : len(d["read_seq"])] = d["read_seq"]
-            if is_rev:
-                contig_win[i] = d["contig_win"]
-                win_base[i] = d["win_base"]
+        rows = group_rows(b)
         launches_before = dict(_cuda.launch_counts)
-        if is_rev:
-            args = rev_batch_from_numpy(
-                (ops, lens, n_ops, pos, win_base, contig_win, bk, bv, nb,
-                 ref_win, ref_base, read_seq), self.device,
-            )
-            out = rev_batch(*args, **bucket_kwargs(bcfg))
-            self.stats["rev_batches"] += 1
-        else:
-            args = batch_from_numpy(
-                (ops, lens, n_ops, pos, bk, bv, nb, ref_win, ref_base,
-                 read_seq), self.device,
-            )
-            out = fwd_batch(*args, **bucket_kwargs(bcfg))
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        out = group_step(self._cache, self.device, is_rev, bcfg,
+                         group_inputs(is_rev, bcfg, [it.dev for it in items],
+                                      rows), b)
         self.stats["batches"] += 1
+        self.stats["rev_batches"] += is_rev
+        shape = f"{'rev' if is_rev else 'fwd'}/{bucket}/{rows}"
+        self.stats["groups"][shape] = self.stats["groups"].get(shape, 0) + 1
+        self.stats.update(self._cache.stats())
         for k, v in _cuda.launch_counts.items():
             self.stats["kernel_launches"][k] += v - launches_before[k]
         self.stats["device_items"] += b

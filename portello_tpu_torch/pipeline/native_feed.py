@@ -60,7 +60,7 @@ from portello_tpu_torch.kernels.resident import (
     build_global_ref,
     split_global_base,
 )
-from portello_tpu_torch.models.compiled import StepCache
+from portello_tpu_torch.models.compiled import StepCache, compiled_steps_line
 from portello_tpu_torch.models.pipeline_model import (
     DEFAULT_BUCKETS,
     bucket_kwargs,
@@ -842,9 +842,7 @@ def scan_and_remap_reads_native(
             k: v - launches_before[k] for k, v in _cuda.launch_counts.items()
         },
         "shards": len(mesh),
-        "compiled_steps": len(cache.graphs()),
-        "replays": sum(g.replays for g in cache.graphs()),
-        "t_capture": sum(g.capture_seconds for g in cache.graphs()),
+        **cache.stats(),
     }
     logger.info(
         f"Lifted {stats['n_primary']} primary reads: "
@@ -858,13 +856,7 @@ def scan_and_remap_reads_native(
         f"rev_batches {n_rev} of {stats['h2d_bytes_per_rev_batch']} bytes, "
         f"batches per bucket {per_bucket})"
     )
-    logger.info(
-        f"Compiled steps: {stats['compiled_steps']} "
-        f"({'CUDA graphs' if mesh[0].type == 'cuda' else 'eager'} on "
-        f"{', '.join(sorted({str(d) for d in mesh}))}), {stats['replays']} "
-        f"replays for {n_batches} batches over {len(mesh)} shards; warm-up "
-        f"and capture {stats['t_capture']:.3f} s"
-    )
+    logger.info(compiled_steps_line(stats, mesh, n_batches))
     if os.environ.get("PTPU_FEED_TIMING"):
         logger.info(
             f"feed timing: prep {t_prep:.2f}s, device {t_dev:.2f}s, "

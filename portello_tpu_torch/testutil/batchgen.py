@@ -10,6 +10,7 @@ Jax-free copies, for ``chip_smoke.py`` on a machine without JAX:
 - ``shift_win_base``: moves half of a reverse batch's items deeper into a
   longer contig, to nonzero window bases.
 - ``resident_from_table``: turns such a table batch into resident inputs.
+- ``item_devs``: a batch's items as the Python feed's engine prepares them.
 - ``mixed_cigar`` and ``resident_table_pair``: the adversarial generator of
   the JAX package's resident tests (``tests/test_resident.py``): clusters at
   the span's start and end, split-gap lifts, odd read offsets and windows at
@@ -106,6 +107,31 @@ def make_item_arrays(
             ref_win, ref_base, read_seq,
         )
     return ops, lens, n_ops, pos, bk, bv, nb, ref_win, ref_base, read_seq
+
+
+def item_devs(arrays, rev: bool = False) -> list[dict]:
+    """The items of a ``make_item_arrays`` batch (``rev_batch``'s inputs
+    with ``rev``, else ``fwd_batch``'s) as the Python feed's ``DeviceEngine``
+    prepares them (``_Item.dev``), for ``pipeline_model.group_inputs``."""
+    if rev:
+        (ops, lens, n_ops, pos, win_base, contig_win, bk, bv, nb, ref_win,
+         ref_base, read_seq) = arrays
+    else:
+        ops, lens, n_ops, pos, bk, bv, nb, ref_win, ref_base, read_seq = arrays
+    devs = []
+    for i in range(len(ops)):
+        n, k = int(n_ops[i]), int(nb[i])
+        d = {
+            "cigar": np.stack([ops[i, :n], lens[i, :n]], axis=1).astype(np.int64),
+            "pos": int(pos[i]), "keys": bk[i, :k], "vals": bv[i, :k],
+            "ref_win": ref_win[i], "ref_base": int(ref_base[i]),
+            "read_seq": read_seq[i],
+        }
+        if rev:
+            d["contig_win"] = contig_win[i]
+            d["win_base"] = int(win_base[i])
+        devs.append(d)
+    return devs
 
 
 def resident_from_table(arrays, genome_bytes=None, rng=None):

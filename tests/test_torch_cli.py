@@ -7,7 +7,10 @@ the Python feed under both routings; an unknown ``PTPU_RESIDENT`` is read
 as unset; ``--feed auto`` without the native scanner runs the Python feed;
 ``--device cuda`` without a GPU exits non-zero."""
 
+import contextlib
+import logging
 import os
+import re
 import subprocess
 import sys
 
@@ -140,7 +143,8 @@ def _assert_same_records(scenario, tag, *others):
 @pytest.mark.parametrize("host_shift", ["1", "0"])
 def test_port_python_feed_equals_jax_and_host(scenario, monkeypatch, host_shift):
     """--feed python: the port's DeviceEngine under host-shift routing and
-    under device-shift routing, where reverse-contig groups run rev_batch."""
+    under device-shift routing, where reverse-contig groups run rev_batch;
+    the log's ``Compiled steps`` line shows one replay per batch."""
     from portello_tpu.main import main as jax_main
     from portello_tpu_torch.main import main as port_main
 
@@ -149,13 +153,42 @@ def test_port_python_feed_equals_jax_and_host(scenario, monkeypatch, host_shift)
     jax_main(_args(scenario, f"jax_{tag}", "cpu", "--feed", "python"))
     jax_main(_args(scenario, f"host_{tag}", "host"))
     engines = _spy_engines(monkeypatch)
-    port_main(_args(scenario, tag, "cpu", "--feed", "python"))
+    with _logged() as lines:
+        port_main(_args(scenario, tag, "cpu", "--feed", "python"))
     assert len(engines) == 1
     stats = engines[0].stats
     assert engines[0].host_shift == (host_shift == "1")
     assert stats["device_items"] > 0 and stats["batches"] > 0
     assert (stats["rev_batches"] > 0) == (host_shift == "0")
+    # every group ran through its compiled step, one replay a batch, and at
+    # most one step was compiled per (kind, bucket, rows)
+    compiled = [m.groups() for m in map(_COMPILED.search, lines) if m]
+    assert compiled == [(str(stats["compiled_steps"]), str(stats["batches"]),
+                         str(stats["batches"]))]
+    assert 1 <= stats["compiled_steps"] <= len(stats["groups"])
     _assert_same_records(scenario, tag, f"jax_{tag}", f"host_{tag}")
+
+
+_COMPILED = re.compile(r"Compiled steps: (\d+) \(eager on cpu\), (\d+) "
+                       r"replays for (\d+) batches over 1 shards")
+
+
+@contextlib.contextmanager
+def _logged():
+    """The messages the port's CLI logs inside the block."""
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Lines()
+    logger = logging.getLogger("portello-tpu")
+    logger.addHandler(handler)
+    try:
+        yield lines
+    finally:
+        logger.removeHandler(handler)
 
 
 def test_port_native_device_shift_equals_jax_and_host(scenario, monkeypatch):
