@@ -1636,8 +1636,7 @@ _LIFTED = re.compile(
     r"\((\d+) window/bucket fallbacks\)"
 )
 _LAUNCHES = re.compile(r"kernel launches: (\{.*\})")
-_TIMING_LINES = ("feed timing:", "native phase split:", "Total Runtime:",
-                 "Resident genome:")
+_TIMING_LINES = ("Total Runtime:", "Resident genome:")
 
 
 # A scenario's contig BAM, read BAM (or CRAM) and reference FASTA.
@@ -1647,7 +1646,7 @@ INPUTS = ("asm_to_ref.bam", "read_to_asm.bam", "ref.fa")
 def _cli_cmd(module, d, tag, device, extra=(), env_extra=None, inputs=INPUTS):
     """The command line and environment of one CLI run on scenario ``d``
     (its ``inputs``, by name in ``d`` or by path)."""
-    env = dict(os.environ, PTPU_FEED_TIMING="1", **(env_extra or {}))
+    env = dict(os.environ, **(env_extra or {}))
     env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [
         sys.executable, "-m", module,

@@ -330,7 +330,7 @@ def native_mix_time_median5(items_fwd, rev_fwd_items, rev_shift_args, max_out):
 # ---------------------------------------------------------------- feed and e2e
 FEED_PROTOCOL = (
     f"one warm-up CLI run, then the median over {E2E_REPEATS} CLI runs of "
-    "n_primary / max(producer busy, finisher busy), PTPU_FEED_TIMING split; "
+    "n_primary / max(producer busy, finisher busy), the feed's t_native split; "
     "e2e = n_primary / CLI wall, median run"
 )
 
@@ -412,7 +412,7 @@ def measure_e2e_fields(device):
     """The feed and end-to-end fields: one warm-up CLI run (CUDA and library
     set-up; its wall under ``e2e_warmup_wall_s``), then ``E2E_REPEATS`` CLI
     runs on the cached scenario, each timed whole, with the feed's
-    busy-time split (``PTPU_FEED_TIMING``); the medians, and every run
+    busy-time split (its stats' ``t_native_*``); the medians, and every run
     under ``*_runs``.
 
     The JAX bench derives the feed's capacity from one run; this one takes
@@ -421,17 +421,9 @@ def measure_e2e_fields(device):
     n_reads = int(os.environ.get("PTPU_BENCH_E2E_READS", str(E2E_READS)))
     read_len = int(os.environ.get("PTPU_BENCH_E2E_READLEN", str(E2E_READLEN)))
     cache = _e2e_scenario_dir(n_reads, read_len)
-    prev_timing = os.environ.get("PTPU_FEED_TIMING")
-    os.environ["PTPU_FEED_TIMING"] = "1"
     threads = os.cpu_count() or 4
-    try:
-        warmup_wall, _ = _cli_run(cache, device, threads)
-        runs = [_cli_run(cache, device, threads) for _ in range(E2E_REPEATS)]
-    finally:
-        if prev_timing is None:
-            del os.environ["PTPU_FEED_TIMING"]
-        else:
-            os.environ["PTPU_FEED_TIMING"] = prev_timing
+    warmup_wall, _ = _cli_run(cache, device, threads)
+    runs = [_cli_run(cache, device, threads) for _ in range(E2E_REPEATS)]
     rows = []
     for wall, stats in runs:
         n_primary = stats.get("n_primary", n_reads)
@@ -494,7 +486,6 @@ def e2e_main():
     n_reads = int(os.environ.get("PTPU_BENCH_E2E_READS", str(E2E_READS)))
     read_len = int(os.environ.get("PTPU_BENCH_E2E_READLEN", str(E2E_READLEN)))
     cache = _e2e_scenario_dir(n_reads, read_len)
-    os.environ["PTPU_FEED_TIMING"] = "1"
     ncpu = os.cpu_count() or 4
 
     if os.environ.get("PTPU_BENCH_OFFLOAD") == "1":

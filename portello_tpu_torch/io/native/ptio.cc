@@ -26,6 +26,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <ctime>
 #include <mutex>
 #include <queue>
 #include <string>
@@ -56,9 +57,101 @@ inline int wd_secs() {
   return v;
 }
 
+// The clock of every span and wait: CLOCK_MONOTONIC, the clock Python's
+// time.monotonic_ns reads, so the scanner's spans and its caller's share
+// one timeline.
+inline long long now_ns() {
+  timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return ts.tv_sec * 1000000000LL + ts.tv_nsec;
+}
+
+inline long long thread_cpu_ns() {
+  timespec ts;
+  clock_gettime(CLOCK_THREAD_CPUTIME_ID, &ts);
+  return ts.tv_sec * 1000000000LL + ts.tv_nsec;
+}
+
+// Where one scanner run's threads wait and what CPU they use.  Each thread
+// names its role once (ThreadRole); a wd_wait that blocks adds its time
+// under (site, role), and each thread the run started adds its CPU time
+// when it ends.  A thread with no counters (ptio's own C exports, a
+// caller's feeder thread) counts nothing.
+enum Role { kMain, kProducer, kPrep, kReadahead, kFinisher, kDeflate,
+            kWriterIo, kRoles };
+constexpr const char* kRoleNames[kRoles] = {
+    "main", "producer", "prep", "readahead", "finisher", "deflate",
+    "writer_io"};
+
+struct Counters {
+  struct Wait {
+    const char* site;
+    int role;
+    long long ns, n;
+  };
+  std::mutex mu;  // a leaf lock: taken with no other lock acquired inside
+  std::vector<Wait> waits;  // a few sites x roles: searched linearly
+  long long cpu_ns[kRoles] = {};
+
+  void add_wait(const char* site, int role, long long ns) {
+    std::lock_guard<std::mutex> lk(mu);
+    for (Wait& w : waits)
+      if (w.role == role && std::strcmp(w.site, site) == 0) {
+        w.ns += ns;
+        ++w.n;
+        return;
+      }
+    waits.push_back({site, role, ns, 1});
+  }
+};
+
+thread_local Counters* tl_counters = nullptr;
+thread_local int tl_role = kMain;
+
+// The calling thread's role and counters while in scope.  A thread the run
+// started (`own`) holds one for its whole life and adds its CPU time at the
+// end; the caller's thread holds one per call into the scanner and keeps
+// its CPU time out (the caller reads its own).
+//
+// Its constructor writes this library's thread-locals, so each pool thread
+// (readahead, deflate, writer io) touches them as it starts, before its
+// first job.  Keep that first touch at the start of those threads: on an
+// H100 host (8 cores, zlib) a feed whose pool threads first touched them
+// inside a job, or never, lifted reads 1.3-2.1x slower and used more CPU
+// seconds a call, whether or not the roles counted anything; why is not
+// known yet (PERF.md, Open questions).
+class ThreadRole {
+ public:
+  ThreadRole(Counters* c, int role, bool own = true)
+      : prev_(tl_counters), prev_role_(tl_role), own_(own && c) {
+    tl_counters = c;
+    tl_role = role;
+  }
+  ~ThreadRole() {
+    if (own_) {
+      std::lock_guard<std::mutex> lk(tl_counters->mu);
+      tl_counters->cpu_ns[tl_role] += thread_cpu_ns();
+    }
+    tl_counters = prev_;
+    tl_role = prev_role_;
+  }
+  ThreadRole(const ThreadRole&) = delete;
+  ThreadRole& operator=(const ThreadRole&) = delete;
+
+ private:
+  Counters* prev_;
+  int prev_role_;
+  bool own_;
+};
+
+// A wait whose predicate is false on entry is timed into the thread's
+// counters; one that does not block reads no clock.
 template <typename Pred, typename Dump>
 void wd_wait(std::condition_variable& cv, std::unique_lock<std::mutex>& lk,
              const char* site, Pred pred, Dump dump) {
+  if (pred()) return;
+  Counters* c = tl_counters;
+  long long t0 = c ? now_ns() : 0;
   int rounds = 0;
   while (!cv.wait_for(lk, std::chrono::seconds(wd_secs()), pred)) {
     ++rounds;
@@ -66,6 +159,7 @@ void wd_wait(std::condition_variable& cv, std::unique_lock<std::mutex>& lk,
             rounds * wd_secs(), dump().c_str());
     fflush(stderr);
   }
+  if (c) c->add_wait(site, tl_role, now_ns() - t0);
 }
 
 constexpr uint8_t kEofMarker[28] = {
@@ -104,6 +198,7 @@ struct Reader {
   std::unordered_set<size_t> ra_pending;               // queued or decoding
   bool ra_closing = false;
   size_t ra_next = 0;  // next coffset not yet scheduled
+  Counters* ctr = nullptr;  // set before the readahead pool starts
   // Push mode (direct CRAM streaming, no temp-BAM transcode): an external
   // producer thread pushes UNCOMPRESSED BAM bytes through a bounded queue
   // and reader_read drains it; the mmap/BGZF machinery above is unused.
@@ -244,6 +339,7 @@ void ra_schedule(Reader* r, size_t from) {
 }
 
 void ra_worker(Reader* r) {
+  ThreadRole role(r->ctr, kReadahead);
   for (;;) {
     std::pair<size_t, uint32_t> job;
     {
@@ -402,6 +498,7 @@ struct Writer {
   std::thread io;                  // ordered fwrite drain (pooled mode)
   std::vector<uint8_t> pending;    // uncompressed tail < block size
   std::string error;
+  Counters* ctr = nullptr;  // set before the pool starts
 };
 
 // Persistent per-caller deflate state: deflateInit2 allocates + clears
@@ -482,6 +579,7 @@ void compress_block_ctx(DeflateCtx* ctx, int level,
 }
 
 void worker_main(Writer* w) {
+  ThreadRole role(w->ctr, kDeflate);
   for (;;) {
     Job* job = nullptr;
     {
@@ -507,6 +605,7 @@ void worker_main(Writer* w) {
 // file writes or completed-prefix bookkeeping — only honest backpressure
 // when the deflate pool is the true bottleneck (the inflight cap).
 void io_main(Writer* w) {
+  ThreadRole role(w->ctr, kWriterIo);
   for (;;) {
     Job* job = nullptr;
     {
@@ -561,6 +660,31 @@ void writer_submit(Writer* w, std::vector<uint8_t>&& raw) {
     w->inflight.push_back(job);
   }
   w->cv_work.notify_one();
+}
+
+// A BGZF writer on `path` ("-" for stdout) whose pool threads count into
+// `ctr` (null: none).
+Writer* writer_open(const char* path, int level, int n_threads,
+                    Counters* ctr) {
+  Writer* w = new Writer();
+  w->f = (std::strcmp(path, "-") == 0) ? stdout : fopen(path, "wb");
+  if (!w->f) {
+    delete w;
+    return nullptr;
+  }
+  w->level = level;
+  w->n_threads = n_threads < 1 ? 1 : n_threads;
+  w->ctr = ctr;
+  // deep enough that encode bursts never stall on a momentarily-busy pool
+  // (~16 MB raw at 256: deflate is the dominant host cost and the producer
+  // must be able to run ahead through device-compute windows)
+  w->max_inflight = std::max<size_t>(256, 32 * w->n_threads);
+  if (w->n_threads > 1) {
+    for (int i = 0; i < w->n_threads; ++i)
+      w->pool.emplace_back(worker_main, w);
+    w->io = std::thread(io_main, w);
+  }
+  return w;
 }
 
 }  // namespace
@@ -764,24 +888,7 @@ int ptio_check_eof(const char* path) {
 // --- writer ---------------------------------------------------------------
 
 void* ptio_writer_open(const char* path, int level, int n_threads) {
-  Writer* w = new Writer();
-  w->f = (std::strcmp(path, "-") == 0) ? stdout : fopen(path, "wb");
-  if (!w->f) {
-    delete w;
-    return nullptr;
-  }
-  w->level = level;
-  w->n_threads = n_threads < 1 ? 1 : n_threads;
-  // deep enough that encode bursts never stall on a momentarily-busy pool
-  // (~16 MB raw at 256: deflate is the dominant host cost and the producer
-  // must be able to run ahead through device-compute windows)
-  w->max_inflight = std::max<size_t>(256, 32 * w->n_threads);
-  if (w->n_threads > 1) {
-    for (int i = 0; i < w->n_threads; ++i)
-      w->pool.emplace_back(worker_main, w);
-    w->io = std::thread(io_main, w);
-  }
-  return w;
+  return writer_open(path, level, n_threads, nullptr);
 }
 
 void ptio_write(void* h, const uint8_t* data, long long n) {

@@ -674,9 +674,11 @@ struct WorkPool {
   bool in_flight = false;
   bool closing = false;
   std::exception_ptr eptr;
+  Counters* ctr = nullptr;  // the scanner's (phase 1's pool has none)
 };
 
 void pool_worker(WorkPool* p) {
+  ThreadRole role(p->ctr, kPrep);
   uint64_t seen = 0;
   for (;;) {
     const std::function<void(int64_t)>* fn;
@@ -870,7 +872,7 @@ struct Scanner {
       fallback_items{0}, n_unassembled{0}, cur_tid{-1};
 
   // wall-clock phase split (ns), reported via ptscan_timing for the feed's
-  // PTPU_FEED_TIMING log: serial record framing/BGZF, parallel record prep,
+  // stats: serial record framing/BGZF, parallel record prep,
   // parallel item-row fill, drain handoff, result intake, EOF padding.
   // read/prepare/fill/drain/shift are producer-thread-only; post is
   // intake-thread-only (read after the producer joins).
@@ -881,13 +883,21 @@ struct Scanner {
   // capacity: reads/s <= n / max(producer path, t_finish)
   long long t_finish_ns = 0;
   long long t_fin_encode_ns = 0, t_fin_write_ns = 0;
-};
 
-long long now_ns() {
-  return std::chrono::duration_cast<std::chrono::nanoseconds>(
-             std::chrono::steady_clock::now().time_since_epoch())
-      .count();
-}
+  // Handed out by ptscan_counters: the run's waits and CPU time by role;
+  // the exact host path's time by call site (prep: summed over the prep
+  // workers; post: the caller's intake); the native threads' boundary
+  // spans (now_ns, [t0, t1]).
+  Counters ctr;
+  mutable std::atomic<long long> host_lift_prep_ns{0};
+  long long host_lift_post_ns = 0;
+  struct Span {
+    long long t0 = 0, t1 = 0;
+  };
+  Span sp_producer, sp_finisher, sp_close_remapped, sp_close_unassembled;
+  long long first_slot_ns = 0;  // the producer's first emit
+  std::string counters_json;
+};
 
 
 int64_t upper_bound_i64(const int64_t* a, int64_t n, int64_t v) {
@@ -1399,6 +1409,7 @@ constexpr size_t kFinQCap = 1024;
 
 void finisher_main(Scanner* scp) {
   Scanner& sc = *scp;
+  ThreadRole role(&sc.ctr, kFinisher);
   std::vector<std::unique_ptr<ReadState>> grab;
   std::vector<uint8_t> buf;
   for (;;) {
@@ -1417,6 +1428,7 @@ void finisher_main(Scanner* scp) {
     if (!failed) {
       try {
         long long tf0 = now_ns();
+        if (!sc.sp_finisher.t0) sc.sp_finisher.t0 = tf0;
         for (auto& r : grab) {
           buf.clear();
           finish_read(sc, *r, &buf);
@@ -1427,6 +1439,7 @@ void finisher_main(Scanner* scp) {
           sc.t_fin_write_ns += tf0 - tw0;
         }
         sc.t_finish_ns = sc.t_fin_encode_ns + sc.t_fin_write_ns;
+        sc.sp_finisher.t1 = tf0;
       } catch (const std::exception& e) {
         std::lock_guard<std::mutex> lk(sc.fin_mu);
         if (sc.fin_error.empty()) sc.fin_error = e.what();
@@ -1634,7 +1647,11 @@ void prepare_item(const Scanner& sc, ReadState& rs, int seg_index, int64_t g,
     rs.n_host += 1;
     int64_t opos;
     Cig ocig;
-    if (host_lift_item(const_cast<Scanner&>(sc), rs, it, &opos, &ocig)) {
+    long long t0 = now_ns();
+    bool lifted =
+        host_lift_item(const_cast<Scanner&>(sc), rs, it, &opos, &ocig);
+    sc.host_lift_prep_ns.fetch_add(now_ns() - t0, std::memory_order_relaxed);
+    if (lifted) {
       it.has_result = true;
       it.ref2_pos = opos;
       it.result = std::move(ocig);
@@ -1751,11 +1768,6 @@ void fill_item_row(const Scanner& sc, ReadState& rs, const Item& it,
   }
 }
 
-// Fine-grained prep profile (scripts/profile_feed.py; process-global,
-// relaxed atomics — measurement only)
-std::atomic<long long> g_prep_parse{0}, g_prep_seq{0}, g_prep_sa{0},
-    g_prep_items{0}, g_prep_rc{0};
-
 // Parse + prep one raw record into a ReadState (worker thread; no Scanner
 // mutation).
 std::unique_ptr<ReadState> prepare_read(
@@ -1764,18 +1776,11 @@ std::unique_ptr<ReadState> prepare_read(
   auto rs = std::make_unique<ReadState>();
   rs->raw = std::move(raw);
   std::string err;
-  long long t0 = now_ns();
   if (!parse_record(rs->raw.data(), rs->raw.size(), &rs->rv, &err))
     throw std::runtime_error(err);
-  long long t1 = now_ns();
   // seq ASCII decode is lazy now (host-fallback items only): the fill and
   // the finisher consume the raw packed bytes directly
-  long long t2 = now_ns();
   parse_splits(rs->rv, &rs->splits, contig_idx);
-  long long t3 = now_ns();
-  g_prep_parse.fetch_add(t1 - t0, std::memory_order_relaxed);
-  g_prep_seq.fetch_add(t2 - t1, std::memory_order_relaxed);
-  g_prep_sa.fetch_add(t3 - t2, std::memory_order_relaxed);
 
   // per read split segment x intersecting contig segment
   // (read_scan.get_contig_split_segments_from_read_mapping)
@@ -1791,8 +1796,6 @@ std::unique_ptr<ReadState> prepare_read(
         prepare_item(sc, *rs, (int)si, g, (int32_t)(g - s0));
     }
   }
-  long long t4 = now_ns();
-  g_prep_items.fetch_add(t4 - t3, std::memory_order_relaxed);
   // (the old eager seq_rc materialization is gone: the fill decodes the
   // flipped row straight from the raw packed bytes.  The remaining ASCII
   // consumers are host shift / fallback compute inside prepare (this thread
@@ -2168,10 +2171,9 @@ void* ptscan_create(
           return fail();
       }
     }
-    sc.remapped = static_cast<Writer*>(
-        ptio_writer_open(remapped_path, compression_level, writer_threads));
-    sc.unassembled = static_cast<Writer*>(
-        ptio_writer_open(unassembled_path, 6, writer_threads));
+    sc.remapped =
+        writer_open(remapped_path, compression_level, writer_threads, &sc.ctr);
+    sc.unassembled = writer_open(unassembled_path, 6, writer_threads, &sc.ctr);
     if (!sc.remapped || !sc.unassembled) return fail();
   } catch (const std::exception&) {
     // exceptions must not cross the C ABI into ctypes (std::terminate)
@@ -2246,8 +2248,10 @@ void* ptscan_create(
     const char* rt = getenv("PTPU_RA_THREADS");
     int n = rt ? atoi(rt)
                : (sc.prep_threads > 2 ? sc.prep_threads - 1 : 2);
+    sc.reader->ctr = &sc.ctr;
     ptio_reader_set_threads(sc.reader, n);
   }
+  sc.pool.ctr = &sc.ctr;
   pool_start(sc.pool, sc.prep_threads);
   sc.finisher = std::thread(finisher_main, &sc);
   return h;
@@ -2273,6 +2277,7 @@ void emit_slot(Scanner& sc, Slot* s) {
           });
   if (sc.shutdown) throw std::runtime_error("scanner shut down");
   sc.ready_q.push_back({s->accum, s, s->count});
+  if (!sc.first_slot_ns) sc.first_slot_ns = now_ns();
   lk.unlock();
   sc.q_cv.notify_one();
 }
@@ -2281,6 +2286,8 @@ void emit_slot(Scanner& sc, Slot* s) {
 // in input order, fill slot rows in parallel, emit completed slots.
 void producer_main(Scanner* scp, ScannerHandle* h) {
   Scanner& sc = *scp;
+  ThreadRole role(&sc.ctr, kProducer);
+  sc.sp_producer.t0 = now_ns();
   try {
     std::deque<Slot*> completed;
     for (;;) {
@@ -2390,6 +2397,7 @@ void producer_main(Scanner* scp, ScannerHandle* h) {
   }
   {
     std::lock_guard<std::mutex> lk(sc.q_mu);
+    sc.sp_producer.t1 = now_ns();
     sc.prod_done = true;
   }
   sc.q_cv.notify_all();
@@ -2410,6 +2418,7 @@ void stop_producer(Scanner& sc) {
 int ptscan_next_batch(void* hv, PtscanBatchDesc* out) {
   auto* h = static_cast<ScannerHandle*>(hv);
   Scanner& sc = h->sc;
+  ThreadRole role(&sc.ctr, kMain, false);
   // lazy start: the first batch request launches the scan loop
   if (!sc.producer.joinable() && !sc.prod_done)
     sc.producer = std::thread(producer_main, &sc, h);
@@ -2471,6 +2480,7 @@ int ptscan_post_results(void* hv, const int32_t* codes, const int32_t* lens,
                         const int64_t* read_len, long long max_out) {
   auto* h = static_cast<ScannerHandle*>(hv);
   Scanner& sc = h->sc;
+  ThreadRole role(&sc.ctr, kMain, false);
   try {
     Scanner::EmittedBatch eb;
     {
@@ -2490,7 +2500,10 @@ int ptscan_post_results(void* hv, const int32_t* codes, const int32_t* lens,
         sc.host_items += 1;
         int64_t opos;
         Cig ocig;
-        if (host_lift_item(sc, rs, it, &opos, &ocig)) {
+        long long t0 = now_ns();
+        bool lifted = host_lift_item(sc, rs, it, &opos, &ocig);
+        sc.host_lift_post_ns += now_ns() - t0;
+        if (lifted) {
           it.has_result = true;
           it.ref2_pos = opos;
           it.result = std::move(ocig);
@@ -2534,6 +2547,7 @@ int ptscan_post_results(void* hv, const int32_t* codes, const int32_t* lens,
 int ptscan_finish(void* hv) {
   auto* h = static_cast<ScannerHandle*>(hv);
   Scanner& sc = h->sc;
+  ThreadRole role(&sc.ctr, kMain, false);
   try {
     stop_producer(sc);  // normally already exited (next_batch returned 0)
     if (!sc.prod_error.empty()) throw std::runtime_error(sc.prod_error);
@@ -2547,16 +2561,24 @@ int ptscan_finish(void* hv) {
       throw std::runtime_error("finish with unresolved reads");
     stop_finisher(sc);
     if (!sc.fin_error.empty()) throw std::runtime_error(sc.fin_error);
+    sc.sp_close_remapped.t0 = now_ns();
     if (!ptio_writer_close(sc.remapped)) {
       sc.remapped = nullptr;
       throw std::runtime_error("remapped writer failed");
     }
     sc.remapped = nullptr;
+    sc.sp_close_remapped.t1 = sc.sp_close_unassembled.t0 = now_ns();
     if (!ptio_writer_close(sc.unassembled)) {
       sc.unassembled = nullptr;
       throw std::runtime_error("unassembled writer failed");
     }
     sc.unassembled = nullptr;
+    sc.sp_close_unassembled.t1 = now_ns();
+    // the prep pool and the readahead pool served the producer alone: they
+    // end here, so that ptscan_counters reads every thread of the run
+    pool_stop(sc.pool);
+    ptio_reader_close(sc.reader);
+    sc.reader = nullptr;
     return 0;
   } catch (const std::exception& e) {
     sc.error = e.what();
@@ -2591,14 +2613,44 @@ void ptscan_timing(void* hv, long long* out9) {
   out9[8] = sc.t_fin_write_ns;
 }
 
-// Process-global prepare_read sub-phase CPU split (profiling only):
-// [parse_record, decode_seq, parse_splits, prepare_items, revcomp]
-void ptscan_prep_timing(long long* out5) {
-  out5[0] = g_prep_parse.load();
-  out5[1] = g_prep_seq.load();
-  out5[2] = g_prep_sa.load();
-  out5[3] = g_prep_items.load();
-  out5[4] = g_prep_rc.load();
+// The run's counters as one JSON object: "wait_ns" {"<site>@<role>": [ns,
+// waits]} for the waits that blocked, "cpu_ns" {role: ns} for the threads
+// the run started, "host_lift_ns" {"prep", "post"}, and "spans" [[name, t0,
+// t1]] of the native threads on CLOCK_MONOTONIC.  Complete after a
+// successful ptscan_finish, which has joined every thread of the run; the
+// text lives until the next call or ptscan_destroy.
+const char* ptscan_counters(void* hv) {
+  Scanner& sc = static_cast<ScannerHandle*>(hv)->sc;
+  std::ostringstream o;
+  std::lock_guard<std::mutex> lk(sc.ctr.mu);
+  o << "{\"wait_ns\": {";
+  const char* sep = "";
+  for (const Counters::Wait& w : sc.ctr.waits) {
+    o << sep << '"' << w.site << '@' << kRoleNames[w.role] << "\": [" << w.ns
+      << ", " << w.n << ']';
+    sep = ", ";
+  }
+  o << "}, \"cpu_ns\": {";
+  for (int r = kMain + 1; r < kRoles; ++r)
+    o << (r > kMain + 1 ? ", " : "") << '"' << kRoleNames[r]
+      << "\": " << sc.ctr.cpu_ns[r];
+  o << "}, \"host_lift_ns\": {\"prep\": " << sc.host_lift_prep_ns.load()
+    << ", \"post\": " << sc.host_lift_post_ns << "}, \"spans\": [";
+  const std::pair<const char*, Scanner::Span> spans[] = {
+      {"producer", sc.sp_producer},
+      {"producer.first_slot", {sc.sp_producer.t0, sc.first_slot_ns}},
+      {"finisher", sc.sp_finisher},
+      {"writer.close.remapped", sc.sp_close_remapped},
+      {"writer.close.unassembled", sc.sp_close_unassembled}};
+  sep = "";
+  for (const auto& [name, sp] : spans)
+    if (sp.t0 && sp.t1) {
+      o << sep << "[\"" << name << "\", " << sp.t0 << ", " << sp.t1 << ']';
+      sep = ", ";
+    }
+  o << "]}";
+  sc.counters_json = o.str();
+  return sc.counters_json.c_str();
 }
 
 void ptscan_destroy(void* hv) {

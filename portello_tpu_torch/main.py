@@ -50,14 +50,16 @@ from portello_tpu_torch.parallel.distributed import (
 from portello_tpu_torch.pipeline.contig_scan import scan_contig_bam
 from portello_tpu_torch.utils.chrom_list import ChromList
 from portello_tpu_torch.utils.genome_segment import GenomeSegment
+from portello_tpu_torch.utils.spans import CallSpans, add_to_chrome_trace
 
 DEVICES = ("cuda", "cpu", "host")
 
 _HELP = {
     "device": "Compute path: cuda (GPU kernels), cpu (plain PyTorch) or host "
     "(exact host oracle)",
-    "profile": "Trace phase 2 with torch.profiler: write a Chrome trace and "
-    "an op table sorted by device time to DIR, and log per-stage feed timing",
+    "profile": "Trace phase 2 with torch.profiler: write a Chrome trace, "
+    "with the run's own spans on one row per thread role, and an op table "
+    "sorted by device time to DIR, and log per-stage feed timing",
     "coordinator": "Rendezvous address (host:port, served by host 0) for a "
     "multi-host run over torch.distributed (gloo); omit for independent "
     "per-host runs",
@@ -125,13 +127,15 @@ def select_device(settings: Settings):
 
 
 @contextlib.contextmanager
-def _profiled(settings: Settings, device, logger):
+def _profiled(settings: Settings, device, logger, spans: CallSpans):
     """``torch.profiler`` over the block when ``--profile DIR`` is given.
 
-    On exit it writes a Chrome trace and an op table sorted by device time
-    (CPU time on the CPU) into DIR, both named per host, and logs the top
-    rows.  The profiler keeps every event in memory until then.  Where it
-    cannot start, the run goes on untraced with a warning."""
+    On exit it writes a Chrome trace, with the call's ``spans`` added on
+    the profiler's clock (those still open end at the export), and an op
+    table sorted by device time (CPU time on the CPU) into DIR, both named
+    per host, and logs the top rows.  The profiler keeps every event in
+    memory until then.  Where it cannot start, the run goes on untraced
+    with a warning."""
     if not settings.profile:
         yield
         return
@@ -139,7 +143,6 @@ def _profiled(settings: Settings, device, logger):
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(settings.profile, exist_ok=True)
-    os.environ["PTPU_FEED_TIMING"] = "1"
     on_cuda = device is not None and device.type == "cuda"
     activities = [ProfilerActivity.CPU]
     if on_cuda:
@@ -166,6 +169,7 @@ def _profiled(settings: Settings, device, logger):
 
     trace = out("trace.json")
     prof.export_chrome_trace(trace)
+    add_to_chrome_trace(trace, spans)
     sort_by = "self_device_time_total" if on_cuda else "self_cpu_time_total"
     averages = prof.key_averages()
     with open(out("ops.txt"), "w") as f:
@@ -181,7 +185,12 @@ def run(settings: Settings, preloaded_reference=None) -> None:
     """One pipeline run: phase 1, then phase 2 over this host's shard.
 
     ``preloaded_reference``: the reference FASTA already parsed by a parent
-    that forked this worker."""
+    that forked this worker.  The run's spans (``utils.spans``: the root
+    ``call`` and its phases ``startup``, then on the native feed ``feed``
+    and ``finish``) and its main thread's CPU seconds reach the native
+    feed's stats."""
+    spans = CallSpans("call")
+    spans.phase("startup")
     logger = setup_logger()
     cmdline = " ".join(sys.argv)
     logger.info(f"Starting {PROGRAM_NAME} {PROGRAM_VERSION} (PyTorch port)")
@@ -197,7 +206,7 @@ def run(settings: Settings, preloaded_reference=None) -> None:
             settings.coordinator, settings.num_hosts, settings.host_id
         )
     try:
-        _lift(settings, preloaded_reference, cmdline, logger)
+        _lift(settings, preloaded_reference, cmdline, logger, spans)
     finally:
         if grouped:
             import torch.distributed as dist
@@ -211,9 +220,11 @@ def run(settings: Settings, preloaded_reference=None) -> None:
     logger.info(
         f"{PROGRAM_NAME} completed. Total Runtime: {hh:02d}:{mm:02d}:{ss:06.3f}"
     )
+    spans.close_all()
 
 
-def _lift(settings: Settings, preloaded_reference, cmdline: str, logger) -> None:
+def _lift(settings: Settings, preloaded_reference, cmdline: str, logger,
+          spans: CallSpans) -> None:
     device = select_device(settings)
     use_native_feed = False
     if device is not None:
@@ -234,13 +245,15 @@ def _lift(settings: Settings, preloaded_reference, cmdline: str, logger) -> None
                 )
         logger.info(f"torch device: {device}")
 
-    ref_chrom_list = ChromList.from_bam_filename(settings.assembly_to_ref_bam)
-    assembly_contig_list = ChromList.from_bam_filename(settings.read_to_assembly_bam)
-    target_region = None
-    if settings.target_region is not None:
-        target_region = GenomeSegment.from_region_str(
-            ref_chrom_list, settings.target_region
-        )
+    with spans.span("startup.chrom_lists"):
+        ref_chrom_list = ChromList.from_bam_filename(settings.assembly_to_ref_bam)
+        assembly_contig_list = ChromList.from_bam_filename(
+            settings.read_to_assembly_bam)
+        target_region = None
+        if settings.target_region is not None:
+            target_region = GenomeSegment.from_region_str(
+                ref_chrom_list, settings.target_region
+            )
     reference = (
         preloaded_reference
         if preloaded_reference is not None
@@ -252,29 +265,30 @@ def _lift(settings: Settings, preloaded_reference, cmdline: str, logger) -> None
         save_contig_index,
     )
 
-    if settings.contig_index and os.path.exists(settings.contig_index):
-        all_contig_mapping_info = load_contig_index(
-            settings.contig_index, ref_chrom_list, assembly_contig_list,
-            target_region, settings.max_join_gap,
-        )
-        logger.info(f"Loaded contig mapping index from {settings.contig_index}")
-    else:
-        all_contig_mapping_info = scan_contig_bam(
-            settings.assembly_to_ref_bam,
-            ref_chrom_list,
-            assembly_contig_list,
-            target_region,
-            max_join_gap=settings.max_join_gap,
-            reference_seqs=reference,
-            thread_count=settings.thread_count,
-        )
-        if settings.contig_index:
-            save_contig_index(
-                settings.contig_index, all_contig_mapping_info,
-                ref_chrom_list, assembly_contig_list, target_region,
-                settings.max_join_gap,
+    with spans.span("startup.contig_index"):
+        if settings.contig_index and os.path.exists(settings.contig_index):
+            all_contig_mapping_info = load_contig_index(
+                settings.contig_index, ref_chrom_list, assembly_contig_list,
+                target_region, settings.max_join_gap,
             )
-            logger.info(f"Saved contig mapping index to {settings.contig_index}")
+            logger.info(f"Loaded contig mapping index from {settings.contig_index}")
+        else:
+            all_contig_mapping_info = scan_contig_bam(
+                settings.assembly_to_ref_bam,
+                ref_chrom_list,
+                assembly_contig_list,
+                target_region,
+                max_join_gap=settings.max_join_gap,
+                reference_seqs=reference,
+                thread_count=settings.thread_count,
+            )
+            if settings.contig_index:
+                save_contig_index(
+                    settings.contig_index, all_contig_mapping_info,
+                    ref_chrom_list, assembly_contig_list, target_region,
+                    settings.max_join_gap,
+                )
+                logger.info(f"Saved contig mapping index to {settings.contig_index}")
 
     shard_plan = None
     remapped_out = settings.remapped_read_output
@@ -297,7 +311,7 @@ def _lift(settings: Settings, preloaded_reference, cmdline: str, logger) -> None
             f"{remapped_out}"
         )
 
-    with _profiled(settings, device, logger):
+    with _profiled(settings, device, logger, spans):
         if device is None or not use_native_feed:
             from portello_tpu_torch.pipeline.read_scan import scan_and_remap_reads
 
@@ -363,6 +377,8 @@ def _lift(settings: Settings, preloaded_reference, cmdline: str, logger) -> None
                 thread_count=settings.thread_count,
                 cram_reference=cram_reference,
                 shard_plan=shard_plan,
+                spans=spans,
+                log_timing=bool(settings.profile),
             )
             logger.info(f"kernel launches: {json.dumps(stats['kernel_launches'])}")
 

@@ -46,11 +46,11 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import json
 import logging
 import os
 import subprocess
 import threading
-import time
 
 import numpy as np
 import torch
@@ -71,6 +71,7 @@ from portello_tpu_torch.parallel.mesh import (
     sharding_mesh,
 )
 from portello_tpu_torch.pipeline.read_scan import get_alignment_file_header
+from portello_tpu_torch.utils.spans import MAIN, CallSpans
 
 logger = logging.getLogger("portello-tpu")
 
@@ -84,6 +85,9 @@ _lib_lock = threading.Lock()
 _build_error: str | None = None
 # the stats dict of the last scan_and_remap_reads_native run in this process
 _last_stats: dict = {}
+# the scanner's phases in ptscan_timing's order, the stats' t_native_<phase>
+NATIVE_PHASES = ("read", "prepare", "fill", "drain", "post", "shift",
+                 "finish_enc", "fin_encode", "fin_write")
 
 
 class _BatchDesc(ctypes.Structure):
@@ -179,6 +183,9 @@ def bind_lib(so_path: str):
     lib.ptscan_finish.restype = ctypes.c_int
     lib.ptscan_finish.argtypes = [ctypes.c_void_p]
     lib.ptscan_stats.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
+    lib.ptscan_timing.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
+    lib.ptscan_counters.restype = ctypes.c_char_p
+    lib.ptscan_counters.argtypes = [ctypes.c_void_p]
     lib.ptscan_destroy.argtypes = [ctypes.c_void_p]
     # push-mode reader (direct CRAM streaming)
     lib.ptio_reader_open_push.restype = ctypes.c_void_p
@@ -600,12 +607,36 @@ def scan_and_remap_reads_native(
     thread_count: int = 1,
     cram_reference=None,
     shard_plan=None,
+    *,
+    spans: CallSpans,
+    log_timing: bool = False,
 ) -> dict:
     """Native-feed phase 2 on ``device``; returns the stats dict, which it
     also leaves in the module's ``_last_stats``: the JAX package's keys (the
-    item counts, ``t_prep``, ``t_dev`` and ``t_post`` in seconds, and under
-    ``PTPU_FEED_TIMING`` the scanner's ``t_native_<phase>``) and the port's
-    own (slot mode, H2D bytes, kernel launches, shards).
+    item counts, ``t_prep``, ``t_dev`` and ``t_post`` in seconds, and the
+    scanner's ``t_native_<phase>``) and the port's own (slot mode, H2D
+    bytes, kernel launches, shards), with the call's trace:
+
+    - ``spans``, ``call_id`` and ``clock_offset_ns`` of ``spans`` (the
+      caller's ``utils.spans.CallSpans``, whose open phase this run ends),
+      with the run's spans added:
+      ``startup.genome_build``, ``startup.genome_upload``,
+      ``startup.scanner``, the ``feed`` phase (per batch
+      ``feed.next_batch``, ``dispatch.submit`` with ``dispatch.capture``
+      where a graph is captured, ``dispatch.wait``, ``post.intake``), the
+      ``finish`` phase (``finish.scanner``, ``finish.destroy``), and the
+      native threads' ``producer``, ``producer.first_slot``, ``finisher``,
+      ``writer.close.remapped`` and ``writer.close.unassembled``;
+    - ``wait_s`` and ``waits``: seconds and count of the native waits that
+      blocked, by ``"<site>@<role>"``;
+    - ``cpu_s``: CPU seconds by thread role, ``spans.cpu_s`` (the native
+      threads' here, the main thread's when the caller closes the call);
+    - ``host_lift_s``: seconds in the exact host path, by call site
+      (``prep``, ``post``).
+
+    The list and the ``cpu_s`` dict are the recorder's own, so what the
+    caller records after the run returns reaches the stats.
+    ``log_timing`` logs the timers and the native split (``--profile``).
 
     Raises RuntimeError when the native library is unavailable.  CRAM input
     streams directly: a producer thread decodes records and pushes
@@ -649,18 +680,18 @@ def scan_and_remap_reads_native(
     if resident:
         # the genome goes to the device once and stays there for the run;
         # under sharding, once to each distinct device of the mesh
-        t0 = time.perf_counter()
-        words, res_goff = build_global_ref(reference)
-        t1 = time.perf_counter()
-        genomes = replicate(mesh, words)
-        for g in genomes:
-            if g.is_cuda:
-                torch.cuda.synchronize(g.device)
+        with spans.span("startup.genome_build") as built:
+            words, res_goff = build_global_ref(reference)
+        with spans.span("startup.genome_upload") as uploaded:
+            genomes = replicate(mesh, words)
+            for g in genomes:
+                if g.is_cuda:
+                    torch.cuda.synchronize(g.device)
         logger.info(
             f"Resident genome: {words.nbytes / 2**20:.1f} MiB on "
             f"{', '.join(sorted({str(g.device) for g in genomes}))} "
-            f"(built in {t1 - t0:.2f} s, uploaded in "
-            f"{time.perf_counter() - t1:.2f} s); packed read rows"
+            f"(built in {spans.seconds(built):.2f} s, uploaded in "
+            f"{spans.seconds(uploaded):.2f} s); packed read rows"
         )
 
     push_handle = None
@@ -684,13 +715,14 @@ def scan_and_remap_reads_native(
         feeder.start()
 
     try:
-        h, _keepalive = create_scanner(
-            lib, read_to_assembly_bam, remapped_read_output,
-            unassembled_read_output, header, reference, ref_chrom_list,
-            contig_list, all_contig_mapping_info, buckets, batch_size,
-            is_target_region, shard_plan, thread_count,
-            push_reader=push_handle, resident=resident,
-        )
+        with spans.span("startup.scanner"):
+            h, _keepalive = create_scanner(
+                lib, read_to_assembly_bam, remapped_read_output,
+                unassembled_read_output, header, reference, ref_chrom_list,
+                contig_list, all_contig_mapping_info, buckets, batch_size,
+                is_target_region, shard_plan, thread_count,
+                push_reader=push_handle, resident=resident,
+            )
     except BaseException:
         # create failed: the scanner did not take reader ownership; after
         # push_close the feeder's next push fails, so the join is bounded
@@ -711,11 +743,7 @@ def scan_and_remap_reads_native(
     )
     stats_buf = (ctypes.c_longlong * 6)()
     timing_buf = (ctypes.c_longlong * 9)()
-    lib.ptscan_timing.argtypes = [
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)
-    ]
     desc = _BatchDesc()
-    t_prep = t_dev = t_post = 0.0
     n_batches = n_rev = 0
     h2d_bytes = h2d_rev = 0
     per_bucket = [0] * len(buckets)
@@ -750,7 +778,11 @@ def scan_and_remap_reads_native(
         # the slot's arrays are copied into the step's staging buffers
         # before submit returns; the copies to the device, the replays and
         # the copies back are queued, not waited on
+        captured = len(cache.graphs())
         handle = step.submit(*args)
+        for g in cache.graphs()[captured:]:
+            if g.capture_ns is not None:
+                spans.add("dispatch.capture", *g.capture_ns)
         nbytes = sum(a.nbytes for a in args)
         h2d_bytes += nbytes
         if d.is_rev:
@@ -759,32 +791,29 @@ def scan_and_remap_reads_native(
         return handle
 
     def post(handle):
-        nonlocal t_dev, t_post
-        t0 = time.perf_counter()
-        host = handle.wait()
-        codes = np.ascontiguousarray(host["codes"], np.int32)
-        olens = np.ascontiguousarray(host["lens"], np.int32)
-        n_out = np.ascontiguousarray(host["n_out"], np.int32)
-        opos = np.ascontiguousarray(host["ref2_pos"], np.int32)
-        mapped = host["mapped"].astype(np.uint8)
-        fallback = host["fallback"].astype(np.uint8)
-        read_len = host["read_len"].astype(np.int64)
-        t_dev += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        rc = lib.ptscan_post_results(
-            h, i32p(codes), i32p(olens), i32p(n_out), i32p(opos),
-            u8p(mapped), u8p(fallback), i64p(read_len),
-            ctypes.c_longlong(codes.shape[1]),
-        )
+        with spans.span("dispatch.wait"):
+            host = handle.wait()
+            codes = np.ascontiguousarray(host["codes"], np.int32)
+            olens = np.ascontiguousarray(host["lens"], np.int32)
+            n_out = np.ascontiguousarray(host["n_out"], np.int32)
+            opos = np.ascontiguousarray(host["ref2_pos"], np.int32)
+            mapped = host["mapped"].astype(np.uint8)
+            fallback = host["fallback"].astype(np.uint8)
+            read_len = host["read_len"].astype(np.int64)
+        with spans.span("post.intake"):
+            rc = lib.ptscan_post_results(
+                h, i32p(codes), i32p(olens), i32p(n_out), i32p(opos),
+                u8p(mapped), u8p(fallback), i64p(read_len),
+                ctypes.c_longlong(codes.shape[1]),
+            )
         if rc < 0:
             raise RuntimeError(lib.ptscan_error(h).decode())
-        t_post += time.perf_counter() - t0
 
     try:
+        in_feed = spans.phase("feed")
         while True:
-            t0 = time.perf_counter()
-            rc = lib.ptscan_next_batch(h, ctypes.byref(desc))
-            t_prep += time.perf_counter() - t0
+            with spans.span("feed.next_batch"):
+                rc = lib.ptscan_next_batch(h, ctypes.byref(desc))
             if rc < 0:
                 raise RuntimeError(lib.ptscan_error(h).decode())
             if rc == 0:
@@ -793,9 +822,8 @@ def scan_and_remap_reads_native(
                 post(in_flight.popleft())
                 continue
             n_batches += 1
-            t0 = time.perf_counter()
-            in_flight.append(dispatch(desc))
-            t_dev += time.perf_counter() - t0
+            with spans.span("dispatch.submit"):
+                in_flight.append(dispatch(desc))
             if len(in_flight) >= 2:
                 post(in_flight.popleft())
             lib.ptscan_stats(h, stats_buf)
@@ -805,16 +833,20 @@ def scan_and_remap_reads_native(
                 progress.inc(max(done - progress.count, 0))
         while in_flight:
             post(in_flight.popleft())
+        spans.phase("finish")
 
         if feeder is not None:
             feeder.join()
             if feeder_state.get("exc") is not None:
                 raise feeder_state["exc"]
 
-        if lib.ptscan_finish(h) < 0:
+        with spans.span("finish.scanner") as in_scanner:
+            rc = lib.ptscan_finish(h)
+        if rc < 0:
             raise RuntimeError(lib.ptscan_error(h).decode())
         lib.ptscan_stats(h, stats_buf)
         lib.ptscan_timing(h, timing_buf)
+        counters = json.loads(lib.ptscan_counters(h))
     except BaseException:
         if feeder is not None and feeder.is_alive():
             lib.ptio_reader_push_close(push_handle)
@@ -825,7 +857,30 @@ def scan_and_remap_reads_native(
         raise
     finally:
         progress.clear()
-        lib.ptscan_destroy(h)
+        with spans.span("finish.destroy"):
+            lib.ptscan_destroy(h)
+
+    # the native threads' spans: the producer's inside the feed, the
+    # finisher's across the feed and the finish (inside the call), and the
+    # writers' closes, on the main thread, inside ptscan_finish
+    where = {"producer": ("producer", in_feed),
+             "finisher": ("finisher", spans.spans[in_feed][1]),
+             "writer.close.remapped": (MAIN, in_scanner),
+             "writer.close.unassembled": (MAIN, in_scanner)}
+    producer = in_feed
+    for name, t0, t1 in counters["spans"]:
+        if name == "producer.first_slot":
+            spans.add(name, t0, t1, "producer", producer)
+        else:
+            role, parent = where[name]
+            i = spans.add(name, t0, t1, role, parent)
+            if name == "producer":
+                producer = i
+    spans.cpu_s.update({r: ns / 1e9 for r, ns in counters["cpu_ns"].items()})
+    timers = spans.seconds_by_name()
+    t_prep = timers.get("feed.next_batch", 0.0)
+    t_dev = timers.get("dispatch.submit", 0.0) + timers.get("dispatch.wait", 0.0)
+    t_post = timers.get("post.intake", 0.0)
 
     stats = {
         "n_primary": int(stats_buf[0]),
@@ -857,22 +912,33 @@ def scan_and_remap_reads_native(
         f"batches per bucket {per_bucket})"
     )
     logger.info(compiled_steps_line(stats, mesh, n_batches))
-    if os.environ.get("PTPU_FEED_TIMING"):
+    waits = counters["wait_ns"]
+    stats.update({f"t_native_{n}": timing_buf[i] / 1e9
+                  for i, n in enumerate(NATIVE_PHASES)})
+    stats.update({
+        "t_prep": t_prep, "t_dev": t_dev, "t_post": t_post,
+        "wait_s": {k: ns / 1e9 for k, (ns, _) in waits.items()},
+        "waits": {k: n for k, (_, n) in waits.items()},
+        "cpu_s": spans.cpu_s,
+        "host_lift_s": {k: ns / 1e9 for k, ns in counters["host_lift_ns"].items()},
+        "spans": spans.spans,
+        "call_id": spans.call_id,
+        "clock_offset_ns": spans.clock_offset_ns,
+    })
+    if log_timing:
         logger.info(
             f"feed timing: prep {t_prep:.2f}s, device {t_dev:.2f}s, "
             f"finish {t_post:.2f}s over {n_batches} batches"
         )
-        names = ("read", "prepare", "fill", "drain", "post", "shift",
-                 "finish_enc", "fin_encode", "fin_write")
         logger.info(
             "native phase split: "
-            + ", ".join(f"{n} {v / 1e9:.3f}s" for n, v in zip(names, timing_buf))
+            + ", ".join(f"{n} {stats[f't_native_{n}']:.3f}s" for n in NATIVE_PHASES)
+            + "; waits: " + ", ".join(
+                f"{k} {v:.3f}s x{stats['waits'][k]}"
+                for k, v in sorted(stats["wait_s"].items()))
+            + "; cpu: " + ", ".join(
+                f"{k} {v:.3f}s" for k, v in spans.cpu_s.items())
         )
-        for i, n in enumerate(names):
-            stats[f"t_native_{n}"] = timing_buf[i] / 1e9
-    stats["t_prep"] = t_prep
-    stats["t_dev"] = t_dev
-    stats["t_post"] = t_post
     global _last_stats
     _last_stats = stats
     return stats

@@ -3,8 +3,9 @@ the companion tools write what the JAX package's write.
 
 After the same CLI run of both packages, the port's ``_last_stats`` (and
 the dict ``scan_and_remap_reads_native`` returns) holds every key of the
-JAX feed's, the timers among them, with equal counts, under
-``PTPU_FEED_TIMING`` unset and set.  On one scenario's remapped BAM, the
+JAX feed's, the timers among them, with equal counts, and the scanner's
+``t_native_<phase>`` timers whether ``PTPU_FEED_TIMING`` (which the port
+no longer reads) is unset or set.  On one scenario's remapped BAM, the
 port's ``tools.sort`` writes JAX's bytes and ``tools.index`` JAX's .bai;
 ``tools.view`` prints the same SAM."""
 
@@ -72,11 +73,8 @@ def test_last_stats_carry_the_jax_keys(scenario, monkeypatch, timing):
     timers = {"t_prep", "t_dev", "t_post"}
     native = {f"t_native_{n}" for n in NATIVE_PHASES}
     assert timers <= set(got)
-    if timing:
-        assert native <= set(got)
-    else:
-        assert not native & set(got)
-    for k in timers | (native if timing else set()):
+    assert native <= set(got)
+    for k in timers | native:
         assert isinstance(got[k], float) and got[k] >= 0.0, k
     for k in COUNTS:
         assert got[k] == want[k], k

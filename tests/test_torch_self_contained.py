@@ -1,12 +1,14 @@
 """The port stands alone: no module of ``portello_tpu_torch`` and nothing in
 ``chip_smoke.py`` or ``scripts/torch_*.py`` imports the JAX package ``portello_tpu`` (or jax), at any
 level of the syntax tree; the port's copies of the JAX package's host
-modules and C++ sources equal their originals but for the import paths;
+modules and C++ sources equal their originals but for the import paths, or,
+for the sources the port has changed since, but for a recorded diff;
 the copied numpy oracle computes what the original does; and a contig index
 written by ``portello_tpu.main`` loads into the port's classes without
 importing ``portello_tpu``."""
 
 import ast
+import difflib
 import os
 import subprocess
 import sys
@@ -123,8 +125,35 @@ EXPECTED_EDITS = {
 }
 
 
+# Copies that the port has changed on purpose since: the native feed's
+# sources, which carry the port's waits, CPU seconds and spans.  Each
+# differs from its original by the unified diff kept in EDITS_DIR; after a
+# deliberate change, ``PYTHONPATH=. python tests/test_torch_self_contained.py``
+# writes the diffs anew.
+DIFFED = ("io/native/ptscan.cc", "io/native/ptio.cc")
+EDITS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "port_edits")
+
+
+def _diff(rel: str) -> str:
+    with open(os.path.join(REPO, "portello_tpu", rel)) as f:
+        original = f.read().splitlines(keepends=True)
+    with open(os.path.join(PORT, rel)) as f:
+        copy = f.read().splitlines(keepends=True)
+    return "".join(difflib.unified_diff(original, copy, f"portello_tpu/{rel}",
+                                        f"portello_tpu_torch/{rel}"))
+
+
+def _diff_path(rel: str) -> str:
+    return os.path.join(EDITS_DIR, os.path.basename(rel) + ".diff")
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_copy_equals_original_but_for_import_paths(rel):
+    if rel in DIFFED:
+        with open(_diff_path(rel)) as f:
+            assert _diff(rel) == f.read(), f"{rel} drifted from its diff"
+        return
     with open(os.path.join(REPO, "portello_tpu", rel)) as f:
         original = f.read()
     with open(os.path.join(PORT, rel)) as f:
@@ -248,3 +277,10 @@ def test_jax_contig_index_loads_in_port(tmp_path):
             assert _records(tmp_path / f"{kind}_{tag}.bam") == _records(
                 tmp_path / f"{kind}_jax.bam"), (tag, kind)
     assert len(_records(tmp_path / "remapped_jax.bam")) > 0
+
+
+if __name__ == "__main__":
+    os.makedirs(EDITS_DIR, exist_ok=True)
+    for rel in DIFFED:
+        with open(_diff_path(rel), "w") as f:
+            f.write(_diff(rel))
