@@ -21,7 +21,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    on phase 4's batch, recorded by a wrapper patched over its own.  The
    window-runs kernel runs both of its contracts, the resident one on a
    synthetic 3.1 Gbp genome on the card (offsets past 2^31, windows at the
-   genome's end).
+   genome's end).  The BGZF writers' compressor (``bgzf_deflate``) runs one
+   launch of the codec's 128 payloads of 65,280 bytes, from the benchmark
+   generator's HiFi reads: each stream and CRC32 equal to the plain
+   version's, the CRC to zlib's, the size against zlib level 6's; its
+   device time against the match search's bound, and launches of 64 and
+   256 payloads beside it.
 4. steps   -- at B=512 HiFi items (18 kb, primary bucket): the forward step
    in both slot modes (the table step on CUDA against the CPU; the resident
    step, items placed in a 3.1 GB genome, on CUDA against the table step
@@ -67,18 +72,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    with ``PTPU_SHARD=1`` in resident slot mode and under device-shift
    routing (sharded over every GPU; on a one-GPU machine a one-shard
    mesh); the Python feed under host-shift and under device-shift routing.
-   The sorted
-   SAM records of each must equal the exact host path's, run both as
-   ``python -m portello_tpu.main --device host`` (the JAX package's CLI in a
-   subprocess; nothing of it is imported here) and as ``python -m
-   portello_tpu_torch.main --device host``; wall seconds, reads/s, item counts,
-   H2D bytes per batch, reverse batches, kernel launches per path.  Then
-   the scale-out and profiling flags, on the native feed in resident slot
-   mode: ``--local-workers 2`` (two forked workers sharing the card),
-   two concurrent ``--num-hosts 2 --host-id h --coordinator`` processes
-   (gloo rendezvous) whose shards ``merge_bams`` joins, and ``--profile``,
-   whose Chrome trace must name kernels 1 and 3.  Each run's merged records
-   must equal the host path's, and each worker's and host's log must show
+   The sorted SAM records of each must equal the exact host path's,
+   ``python -m portello_tpu_torch.main --device host`` (which the CPU tests
+   hold equal to the JAX package's; nothing of JAX runs here); wall
+   seconds, reads/s, item counts, H2D bytes per batch, reverse batches,
+   kernel launches per path; every native-feed process deflates all the
+   BGZF blocks of its two writers on the card, in at least one launch, and
+   the Python feed none.  Then the scale-out and profiling flags, on the
+   native feed in resident slot mode: ``--local-workers 2`` (two forked
+   workers sharing the card), two concurrent ``--num-hosts 2 --host-id h
+   --coordinator`` processes (gloo rendezvous) whose shards ``merge_bams``
+   joins, and ``--profile``, whose Chrome trace must name kernels 1 and 3
+   and ``bgzf_deflate``.  Each run's merged records must equal the host
+   path's, and each worker's and host's log must show
    launches of kernels 1 and 3.  Every process of either feed must log that
    it ran its steps as CUDA graphs, one replay per batch and shard; the
    Python feed's, at most one graph per (kind, bucket, rows) it met.
@@ -119,6 +125,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20260816
@@ -133,19 +140,28 @@ STEP_ORDER = ("table", "resident", "rev")
 
 # The least time for a kernel's work: the bytes it must move (each input read
 # once, each output written once) over the H100 SXM's HBM3 rate at its full
-# 700 W (NVIDIA's data sheet).  The three kernels do a few integer operations
-# per byte, far below the card's rate, so bytes bound them all.
+# 700 W (NVIDIA's data sheet).  The three step kernels do a few integer
+# operations per byte, far below the card's rate, so bytes bound them.
 HBM_BYTES_PER_S = 3.35e12
+# bgzf_deflate's match search bounds it: each chain entry it looks at
+# (``bgzf_deflate.search_visits``) is two loads from shared memory, the
+# entry's position and the byte a longer match must equal.  An H100 SXM SM
+# loads 32 such values a clock (32 banks), 132 SMs at the 1.98 GHz boost
+# clock (NVIDIA's data sheet).
+SEARCH_LOADS_PER_S = 132 * 32 * 1.98e9
 
 # The device kernel of each wrapper, as torch.profiler names it.
 KERNEL_FUNCTIONS = {
     "cleanup_and_compress": "cleanup_and_compress_kernel",
     "match_run": "match_run_kernel",
     "window_match": "window_runs_resident_kernel",
+    "bgzf_deflate": "bgzf_deflate_kernel",
 }
 
-# The kernels each path must launch, read from the launch counts of one run;
-# it must launch no other.
+# The step kernels each path must launch, read from the launch counts of one
+# run; it must launch no other.  ``bgzf_deflate`` is not a step's: every
+# native-feed run deflates its BGZF blocks with it (``_deflated``), and the
+# profiled run's trace must name it.
 PATH_KERNELS = {
     "resident": ("cleanup_and_compress", "window_match"),
     "table": ("cleanup_and_compress", "match_run"),
@@ -159,7 +175,7 @@ PATH_KERNELS = {
     # phase 5's scale-out runs, each process on resident slots
     "workers": ("cleanup_and_compress", "window_match"),
     "hosts": ("cleanup_and_compress", "window_match"),
-    "profile": ("cleanup_and_compress", "window_match"),
+    "profile": ("cleanup_and_compress", "window_match", "bgzf_deflate"),
     # phase 4b's steps in the mid and wide buckets
     "spill_table": ("cleanup_and_compress", "match_run"),
     "spill_resident": ("cleanup_and_compress", "window_match"),
@@ -590,6 +606,7 @@ def phase_kernels(rng, rev_arrays):
     results["match_run_err"] = max(err2, shift.pop("match_run_err"))
     results.update(shift)
     results.update(phase_window_match(rng))
+    results["bgzf_deflate"] = phase_bgzf_deflate()
     return results
 
 
@@ -865,6 +882,100 @@ def phase_window_match(rng):
             f"{_bound_text(window_table_bytes(512, c, W), ms)}")
     results["window_match_err"] = err
     return results
+
+
+# Phase 3's BGZF payloads: the benchmark generator's revio reads (HiFi
+# qualities, =/X CIGARs) at a CPU test's scale, 700 reads, about 265 of the
+# writers' 65,280-byte blocks.
+BGZF_READS = 700
+
+
+def _zlib6_bytes(payload: bytes) -> int:
+    z = zlib.compressobj(6, zlib.DEFLATED, -15, 8)
+    return len(z.compress(payload) + z.flush())
+
+
+def _launch_ms(launch) -> tuple[float, str]:
+    """Milliseconds of one ``bgzf_deflate`` launch: the kernel's device time
+    (profiler events by name, ``_kernels_in_step``), or, where the profiler
+    records none, the CUDA-event time with host overhead."""
+    found = _kernels_in_step(launch.run).get("bgzf_deflate")
+    if found:
+        return found[0], "device time"
+    return cuda_ms(launch.run, reps=10), "(CUDA events)"
+
+
+def phase_bgzf_deflate():
+    """The BGZF writers' compressor at the codec's shape: one launch of
+    ``STAGED_BLOCKS`` payloads of the generator's reads, each stream and
+    CRC32 equal to the plain version's, each stream inflating to its
+    payload, each CRC zlib's; the output's size against zlib level 6's; the
+    kernel's device time (profiler, by name) against its bound, the larger
+    of the match search's (``SEARCH_LOADS_PER_S``) and the bytes' (input,
+    the 4-byte match a position written and read back, output); and the
+    times of launches of 64 payloads (a call's launches hold 57-64) and 256
+    (two waves of the SMs).  Returns (kernel ms, plain ms, bound ms, bound
+    by, bytes, search visits)."""
+    import gzip
+
+    import torch
+
+    from benchmark.gen import build
+    from benchmark.tests import tiny
+    from portello_tpu_torch.kernels import bgzf_deflate as bd
+
+    _, _, config, mix = tiny.spec("revio.hostshift", BGZF_READS)
+    with tempfile.TemporaryDirectory(prefix="ptt_bgzf_") as tmp:
+        meta = build.build(config, mix, SEED, tmp)
+        with gzip.open(meta["reads_bam"], "rb") as f:
+            raw = f.read()
+    blocks = [raw[k:k + bd.MAX_PAYLOAD]
+              for k in range(0, len(raw), bd.MAX_PAYLOAD)]
+    require(len(blocks) >= 2 * bd.STAGED_BLOCKS,
+            f"bgzf_deflate: {len(blocks)} blocks of generated reads")
+    payloads = blocks[:bd.STAGED_BLOCKS]
+    dev = torch.device("cuda")
+    launch = bd.Launch(payloads, dev)
+    launch.run()
+    got = launch.results()
+    t0 = time.perf_counter()
+    want = bd.deflate_plain(payloads)
+    pms = (time.perf_counter() - t0) * 1e3
+    differ = sum(g != w for g, w in zip(got, want))
+    require(differ == 0, f"bgzf_deflate: {differ} of {len(payloads)} "
+            "streams or CRC32s differ from the plain version's")
+    for (stream, crc), p in zip(got, payloads):
+        require(zlib.decompressobj(-15).decompress(stream) == p
+                and crc == zlib.crc32(p),
+                "bgzf_deflate: a stream does not inflate to its payload "
+                "with its CRC32")
+    out_bytes = sum(len(st) for st, _ in got)
+    ratio = out_bytes / sum(_zlib6_bytes(p) for p in payloads)
+    in_bytes = sum(len(p) for p in payloads)
+    visits = bd.search_visits(payloads)
+    search_ms = 2 * visits / SEARCH_LOADS_PER_S * 1e3
+    nbytes = in_bytes * (1 + 8) + out_bytes
+    bound = max(search_ms, bound_ms(nbytes))
+    ms, how = _launch_ms(launch)
+    sizes = []
+    for n in (64, 2 * bd.STAGED_BLOCKS):
+        n_ms, n_how = _launch_ms(bd.Launch(blocks[:n], dev))
+        sizes.append(f"{n} payloads {n_ms:.3f} ms {n_how} "
+                     f"({sum(map(len, blocks[:n])) / n_ms / 1e6:.2f} GB/s)")
+    log(f"kernel bgzf_deflate, one launch of {len(payloads)} payloads "
+        f"({in_bytes} bytes of the generator's revio reads): streams and "
+        f"CRC32s equal to the plain version's, each inflating to its "
+        f"payload; output {out_bytes} bytes, {ratio:.4f} of zlib level 6's; "
+        f"kernel {ms:.3f} ms {how} ({in_bytes / ms / 1e6:.2f} GB/s "
+        f"raw), one launch with host overhead (CUDA events) "
+        f"{cuda_ms(launch.run, reps=10):.3f} ms; plain version {pms:.1f} ms "
+        f"on one host core; bound {bound:.4f} ms by the search "
+        f"({visits} chain entries, {visits / in_bytes:.2f} a position, two "
+        f"shared loads each at {SEARCH_LOADS_PER_S / 1e12:.2f} T/s: "
+        f"{search_ms:.4f} ms; bytes {nbytes}: "
+        f"{bound_ms(nbytes):.4f} ms), kernel at {bound / ms:.1%} of it; "
+        "launches of " + ", ".join(sizes))
+    return ms, pms, bound, "search", nbytes, visits
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1766,6 +1877,30 @@ def _python_feed_text(err, what) -> tuple[int, str]:
 
 
 _SHARDING = re.compile(r"Sharding batches over (\d+) local devices")
+_DEFLATED = re.compile(r"BGZF blocks: (\d+) deflated on the card in (\d+) "
+                       r"launches, (\d+) on the host")
+
+
+def _deflated(errs, feed, what, launches, processes=1) -> str:
+    """Each of the ``processes`` native-feed processes whose logs are
+    ``errs`` deflated every BGZF block of its two writers on the card, in at
+    least one launch of ``bgzf_deflate``; the Python feed logs no such
+    line.  Adds the launches to ``launches``; returns a summary."""
+    found = [tuple(map(int, m)) for err in errs for m in _DEFLATED.findall(err)]
+    if feed != "native":
+        require(not found, f"{what}: the Python feed logged BGZF blocks")
+        return ""
+    require(len(found) == processes,
+            f"{what}: {len(found)} 'BGZF blocks' lines for {processes} "
+            "processes")
+    for card, n_launches, host in found:
+        require(host == 0 and card > 0 and n_launches > 0,
+                f"{what}: {card} BGZF blocks deflated on the card in "
+                f"{n_launches} launches, {host} on the host")
+    launches["bgzf_deflate"] = sum(n for _, n, _ in found)
+    return (f"BGZF blocks all on the card: "
+            f"{sum(c for c, _, _ in found)} in {launches['bgzf_deflate']} "
+            "launches of bgzf_deflate")
 
 # The CLI runs of phase 5: (path, --feed, environment).
 E2E_RUNS = (
@@ -1831,7 +1966,10 @@ def _process_launches(errs, path, what):
             f"{len(PROCESSES[path])} processes")
     for name, launches in zip(PROCESSES[path], found):
         require_launches(launches, path, f"{what}, {name}")
-    return {k: sum(f.get(k, 0) for f in found) for k in KERNELS}
+    total = {k: sum(f.get(k, 0) for f in found) for k in KERNELS}
+    log(f"{what}: " + _deflated(errs, "native", what, total,
+                                len(PROCESSES[path])))
+    return total
 
 
 def _log_lines(err, path, keys):
@@ -1873,7 +2011,7 @@ def phase_scale_out(d, want, threads, smi):
     2`` (two forked workers on one card, each with its own CUDA context and
     resident genome), two concurrent ``--num-hosts 2 --coordinator`` hosts
     joined over gloo and merged with ``merge_bams``, and ``--profile``,
-    whose Chrome trace must name kernels 1 and 3."""
+    whose Chrome trace must name kernels 1 and 3 and ``bgzf_deflate``."""
     from portello_tpu_torch.tools.merge import merge_bams
     from portello_tpu_torch.parallel.distributed import shard_output_path
 
@@ -1983,6 +2121,7 @@ def _spill_run(d, path, feed, env, want, threads, smi, inputs=INPUTS,
             f"e2e {path}: the log lacks its stats lines:\n{err[-3000:]}")
     launches = json.loads(lm.group(1))
     require_launches(launches, path, f"e2e {path} run")
+    deflate_text = _deflated([err], feed, f"e2e {path}", launches)
     _same_records(d, path, want, f"e2e {path}", cram)
     counts = dict(zip(("primary", "device", "host", "fallback"),
                       map(int, m.groups())))
@@ -2005,7 +2144,7 @@ def _spill_run(d, path, feed, env, want, threads, smi, inputs=INPUTS,
         feed_text = (f"; H2D {hm.group(1)} bytes/batch ({hm.group(2)} slots, "
                      f"{n_batches} batches, per bucket {per_bucket}, "
                      f"{n_rev} reverse of {hm.group(5)} bytes); "
-                     f"{_graphs_text(err, f'e2e {path}')}")
+                     f"{_graphs_text(err, f'e2e {path}')}; {deflate_text}")
     else:
         feed_text = "; " + _python_feed_text(err, f"e2e {path}")[1]
     _log_lines(err, path, _TIMING_LINES + ("peak device memory:",))
@@ -2122,15 +2261,14 @@ def phase_e2e(smi, inputs):
     runs = {}
     d = inputs["bench"]
     threads = str(os.cpu_count() or 1)
-    # the port's host path must equal the JAX package's, so every --device
-    # cuda run below equals both
-    _host_cli("portello_tpu.main", d, "host", threads)
+    # the reference is the port's exact host path, which the CPU tests
+    # (tests/test_torch_cli.py) hold equal to the JAX package's; the JAX
+    # package does not run here
     _host_cli("portello_tpu_torch.main", d, "port_host", threads)
-    want = _records(d, "host")
+    want = _records(d, "port_host")
     require(len(want["remapped"]) > 0, "e2e produced no remapped records")
-    _same_records(d, "port_host", want, "e2e port --device host")
-    log(f"e2e: port --device host output == portello_tpu --device host "
-        f"output ({len(want['remapped'])} remapped records)")
+    log(f"e2e: port --device host output, {len(want['remapped'])} remapped "
+        "records")
     # Each CLI runs in its own process, whose launch counts start at 0;
     # it logs the launches of its phase-2 run ("kernel launches: {...}").
     for path, feed, env in E2E_RUNS:
@@ -2161,6 +2299,9 @@ def phase_e2e(smi, inputs):
                 "runs two shards on one card)" if n_shards == 1 else ""))
         launches = json.loads(lm.group(1))
         require_launches(launches, path, f"e2e {path} run")
+        deflate_text = _deflated([err], feed, f"e2e {path}", launches)
+        if deflate_text:
+            feed_text += "; " + deflate_text
         _log_lines(err, path, _TIMING_LINES)
         _same_records(d, path, want, f"e2e {path}")
         n_primary, dev_items, host_items, fb_items = map(int, m.groups())
@@ -2397,6 +2538,19 @@ def main() -> int:
                               for key, t in spill_in_step.items()
                               if kernel in t},
         })
+    # bgzf_deflate: phase 3's launch of the codec's 128 payloads; its bytes
+    # equal the plain version's (required), so max_abs_err is 0.
+    ms, plain_ms, bound, bound_by, nbytes, visits = kres["bgzf_deflate"]
+    kernels.append({
+        "name": "bgzf_deflate", "route": "cuda",
+        "source": "portello_tpu_torch/csrc/bgzf_deflate.cu", "replaces": None,
+        "launches": e2e["resident"]["bgzf_deflate"], "max_abs_err": 0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": None, "bytes": nbytes,
+        "search_visits": visits,
+        "launches_by_path": {path: e2e[path].get("bgzf_deflate", 0)
+                             for path in e2e},
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

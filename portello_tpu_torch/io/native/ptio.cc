@@ -11,6 +11,8 @@
 
 #include <zlib.h>
 
+#include "../../csrc/bgzf_deflate.h"
+
 // libdeflate: the same accelerated codec htslib links for BGZF when
 // available (2-3x zlib on both directions + PCLMUL crc32).  Falls back to
 // zlib when the header or library is absent (-DPTIO_NO_LIBDEFLATE).
@@ -27,6 +29,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <ctime>
+#include <memory>
 #include <mutex>
 #include <queue>
 #include <string>
@@ -92,6 +95,9 @@ struct Counters {
   std::mutex mu;  // a leaf lock: taken with no other lock acquired inside
   std::vector<Wait> waits;  // a few sites x roles: searched linearly
   long long cpu_ns[kRoles] = {};
+  // BGZF blocks the writers deflated on the card and on the host, and the
+  // card's launches
+  std::atomic<long long> deflate_card{0}, deflate_host{0}, deflate_launches{0};
 
   void add_wait(const char* site, int role, long long ns) {
     std::lock_guard<std::mutex> lk(mu);
@@ -488,6 +494,8 @@ struct Writer {
   int n_threads = 1;
   size_t max_inflight = 64;  // blocks (~64 KB raw each) queued to the pool
   std::vector<std::thread> pool;
+  bgzf::Card* card = nullptr;  // deflates on the card, in place of the pool
+  std::thread codec;           // the card's staging thread
   std::mutex mu;
   std::condition_variable cv_work, cv_done;
   std::deque<Job*> todo;
@@ -518,6 +526,25 @@ struct DeflateCtx {
   int level = -1;
   std::vector<uint8_t> cdata;
 };
+
+// A BGZF block around a raw deflate stream of a payload of isize bytes.
+void frame_block(const uint8_t* cdata, size_t clen, uint32_t crc,
+                 uint32_t isize, std::vector<uint8_t>* out) {
+  uint32_t bsize = static_cast<uint32_t>(clen) + 26;
+  out->resize(18 + clen + 8);
+  uint8_t* p = out->data();
+  const uint8_t hdr[12] = {0x1f, 0x8b, 8, 4, 0, 0, 0, 0, 0, 0xff, 6, 0};
+  std::memcpy(p, hdr, 12);
+  p[12] = 'B';
+  p[13] = 'C';
+  p[14] = 2;
+  p[15] = 0;
+  uint16_t bs16 = static_cast<uint16_t>(bsize - 1);
+  std::memcpy(p + 16, &bs16, 2);
+  std::memcpy(p + 18, cdata, clen);
+  std::memcpy(p + 18 + clen, &crc, 4);
+  std::memcpy(p + 18 + clen + 4, &isize, 4);
+}
 
 void compress_block_ctx(DeflateCtx* ctx, int level,
                         const std::vector<uint8_t>& raw,
@@ -560,22 +587,7 @@ void compress_block_ctx(DeflateCtx* ctx, int level,
   clen = zs.total_out;
   crc = crc32(0, raw.data(), raw.size());
 #endif
-  std::vector<uint8_t>& cdata = ctx->cdata;
-  uint32_t bsize = static_cast<uint32_t>(clen) + 26;
-  out->resize(18 + clen + 8);
-  uint8_t* p = out->data();
-  const uint8_t hdr[12] = {0x1f, 0x8b, 8, 4, 0, 0, 0, 0, 0, 0xff, 6, 0};
-  std::memcpy(p, hdr, 12);
-  p[12] = 'B';
-  p[13] = 'C';
-  p[14] = 2;
-  p[15] = 0;
-  uint16_t bs16 = static_cast<uint16_t>(bsize - 1);
-  std::memcpy(p + 16, &bs16, 2);
-  std::memcpy(p + 18, cdata.data(), clen);
-  uint32_t isize = raw.size();
-  std::memcpy(p + 18 + clen, &crc, 4);
-  std::memcpy(p + 18 + clen + 4, &isize, 4);
+  frame_block(ctx->cdata.data(), clen, crc, raw.size(), out);
 }
 
 void worker_main(Writer* w) {
@@ -591,11 +603,94 @@ void worker_main(Writer* w) {
     }
     static thread_local DeflateCtx ctx;
     compress_block_ctx(&ctx, w->level, job->raw, &job->out);
+    if (w->ctr) ++w->ctr->deflate_host;
     {
       std::lock_guard<std::mutex> lk(w->mu);
       job->done = true;
     }
     w->cv_done.notify_all();
+  }
+}
+
+void card_check(Writer* w, int rc) {
+  if (!rc) return;
+  std::lock_guard<std::mutex> lk(w->mu);
+  if (w->error.empty())
+    w->error = "card deflate failed: CUDA error " + std::to_string(rc);
+}
+
+// Waits for a staged set whose submit succeeded (`submitted`), frames its
+// streams as BGZF blocks and hands the jobs to the io thread.  A set that
+// failed on the card goes to the io thread unframed: the writer's error is
+// set, and its close reports it.  Returns whether the set was framed.
+bool card_finish(Writer* w, int s, std::vector<Job*>* jobs, bool submitted) {
+  bgzf::Card* card = w->card;
+  bool ok = submitted;
+  if (ok) {
+    long long t0 = now_ns();
+    int rc = card->wait(card, s);
+    if (w->ctr) w->ctr->add_wait("card_deflate done", kDeflate, now_ns() - t0);
+    card_check(w, rc);
+    ok = !rc;
+  }
+  const bgzf::CardSet& st = card->set[s];
+  if (ok)
+    for (size_t k = 0; k < jobs->size(); ++k)
+      frame_block(st.out + k * bgzf::kOutStride, st.out_len[k], st.crc[k],
+                  (*jobs)[k]->raw.size(), &(*jobs)[k]->out);
+  if (w->ctr && ok) w->ctr->deflate_card += jobs->size();
+  {
+    std::lock_guard<std::mutex> lk(w->mu);
+    for (Job* job : *jobs) job->done = true;
+  }
+  w->cv_done.notify_all();
+  jobs->clear();
+  return ok;
+}
+
+// The card's codec: one thread in place of the deflate pool.  It stages up
+// to max_blocks queued payloads in one pinned set while the other set is on
+// the card, then waits for the older set and frames it; the io thread
+// writes the blocks in order, as it does the pool's.  After the first
+// failed submit or wait it sends nothing more to the card.
+void card_main(Writer* w) {
+  ThreadRole role(w->ctr, kDeflate);
+  bgzf::Card* card = w->card;
+  std::vector<Job*> staged[2];
+  bool submitted[2] = {false, false};
+  int fill = 0;          // the set staged next
+  bool on_card = false;  // the other set is on the card
+  bool failed = false;   // a submit or a wait failed
+  for (;;) {
+    std::vector<Job*>& next = staged[fill];
+    {
+      std::unique_lock<std::mutex> lk(w->mu);
+      if (!on_card)
+        w->cv_work.wait(lk, [&] { return !w->todo.empty() || w->closing; });
+      size_t k = std::min(w->todo.size(), (size_t)card->max_blocks);
+      next.assign(w->todo.begin(), w->todo.begin() + k);
+      w->todo.erase(w->todo.begin(), w->todo.begin() + k);
+    }
+    if (next.empty() && !on_card) return;
+    submitted[fill] = false;
+    if (!next.empty() && !failed) {
+      const bgzf::CardSet& st = card->set[fill];
+      for (size_t k = 0; k < next.size(); ++k) {
+        std::memcpy(st.in + k * bgzf::kMaxPayload, next[k]->raw.data(),
+                    next[k]->raw.size());
+        st.in_len[k] = static_cast<int32_t>(next[k]->raw.size());
+      }
+      int rc = card->submit(card, fill, static_cast<int>(next.size()));
+      card_check(w, rc);
+      submitted[fill] = !rc;
+      failed = rc != 0;
+      if (w->ctr && !rc) ++w->ctr->deflate_launches;
+    }
+    if (on_card &&
+        !card_finish(w, fill ^ 1, &staged[fill ^ 1], submitted[fill ^ 1]))
+      failed = true;
+    on_card = !next.empty();
+    if (on_card) fill ^= 1;
   }
 }
 
@@ -631,9 +726,10 @@ void io_main(Writer* w) {
 void writer_submit(Writer* w, std::vector<uint8_t>&& raw) {
   Job* job = new Job();
   job->raw = std::move(raw);
-  if (w->n_threads <= 1) {
+  if (w->n_threads <= 1 && !w->card) {
     static thread_local DeflateCtx ctx;
     compress_block_ctx(&ctx, w->level, job->raw, &job->out);
+    if (w->ctr) ++w->ctr->deflate_host;
     if (fwrite(job->out.data(), 1, job->out.size(), w->f) != job->out.size())
       w->error = "write failed";
     delete job;
@@ -663,9 +759,10 @@ void writer_submit(Writer* w, std::vector<uint8_t>&& raw) {
 }
 
 // A BGZF writer on `path` ("-" for stdout) whose pool threads count into
-// `ctr` (null: none).
+// `ctr` (null: none).  With a `card` (null: none) a compressing writer
+// deflates on the card through one codec thread in place of its pool.
 Writer* writer_open(const char* path, int level, int n_threads,
-                    Counters* ctr) {
+                    Counters* ctr, bgzf::Card* card) {
   Writer* w = new Writer();
   w->f = (std::strcmp(path, "-") == 0) ? stdout : fopen(path, "wb");
   if (!w->f) {
@@ -679,7 +776,11 @@ Writer* writer_open(const char* path, int level, int n_threads,
   // (~16 MB raw at 256: deflate is the dominant host cost and the producer
   // must be able to run ahead through device-compute windows)
   w->max_inflight = std::max<size_t>(256, 32 * w->n_threads);
-  if (w->n_threads > 1) {
+  if (card && level > 0) {
+    w->card = card;
+    w->codec = std::thread(card_main, w);
+    w->io = std::thread(io_main, w);
+  } else if (w->n_threads > 1) {
     for (int i = 0; i < w->n_threads; ++i)
       w->pool.emplace_back(worker_main, w);
     w->io = std::thread(io_main, w);
@@ -687,9 +788,155 @@ Writer* writer_open(const char* path, int level, int n_threads,
   return w;
 }
 
+// Each position's nearest earlier position of its trigram's hash (kNil:
+// none), the chains that find_match walks.
+std::vector<uint16_t> hash_chains(const uint8_t* in, int n) {
+  using namespace bgzf;
+  std::vector<uint16_t> prev(n + 1, kNil);
+  std::vector<uint16_t> head(1u << kHashBits, kNil);
+  for (int i = 0; i + 2 < n; ++i) {
+    uint32_t h = hash3(in, i);
+    prev[i] = head[h];
+    head[h] = static_cast<uint16_t>(i);
+  }
+  return prev;
+}
+
+// bgzf_deflate.h's algorithm on the host, step by step as the card runs
+// it: the deflate stream of in[0..n), n <= 65280, into out (65536 bytes);
+// returns its bytes and sets *crc.
+int bgzf_deflate_plain(const uint8_t* in, int n, uint8_t* out,
+                       uint32_t* crc) {
+  using namespace bgzf;
+  std::vector<uint16_t> prev = hash_chains(in, n), desc(n + 1);
+  std::vector<uint32_t> match(n + 1);
+  for (int i = 0; i < n; ++i) {
+    match[i] = find_match(in, n, prev.data(), i);
+    desc[i] = static_cast<uint16_t>(match[i] >> 16);
+  }
+  lazy_parse(desc.data(), n);
+  for (int p = 0; p < n; ++p)
+    if (is_match_start(desc[p])) desc[p + 1] = match[p] & 0xffff;
+  uint32_t table[256];
+  for (uint32_t k = 0; k < 256; ++k) table[k] = crc_table_entry(k);
+  *crc = 0;  // the CRCs of 128-byte pieces, combined as the kernel does
+  for (int off = 0; off < n; off += 128) {
+    int len = std::min(128, n - off);
+    *crc = crc32_combine(*crc, crc32_bytes(table, in + off, len), len);
+  }
+  // the kernel's chunks of positions, one after another
+  constexpr int kChunk = 128, kChunks = (kMaxPayload + kChunk - 1) / kChunk;
+  std::vector<uint32_t> sym(kChunks + 1), bits(kChunks + 1);
+  for (int t = 0; t < kChunks; ++t)
+    sym[t + 1] = sym[t] + chunk_symbols(desc.data(), n, t, kChunk);
+  auto plan = std::make_unique<Plan>();
+  plan_clear(plan.get(), sym[kChunks], n, 0, 1);
+  for (int t = 0; t < kChunks; ++t)
+    chunk_count(in, desc.data(), n, t, kChunk, sym[t], plan.get());
+  for (int k = 0; k < plan->n_blocks; ++k) plan_block(plan.get(), k);
+  plan_offsets(plan.get());
+  for (int t = 0; t < kChunks; ++t)
+    bits[t + 1] = bits[t] + chunk_bits(in, desc.data(), n, t, kChunk, sym[t],
+                                       plan.get());
+  std::vector<unsigned long long> words(kOutStride / 8 + 1);
+  for (int t = 0; t < kChunks; ++t)
+    chunk_write(in, desc.data(), n, t, kChunk, sym[t], bits[t], plan.get(),
+                words.data());
+  write_headers(plan.get(), words.data());
+  write_stored(in, plan.get(), 0, 1, words.data());
+  int nbytes = (plan->total_bits + 7) / 8;
+  std::memcpy(out, words.data(), nbytes);
+  return nbytes;
+}
+
+// A card that deflates on the host with bgzf_deflate_plain, so that the
+// tests drive a writer's codec thread without one.  It counts its submits
+// and waits, and its submit number `fail_at` (from 0; -1: none) fails.
+struct HostCard {
+  bgzf::Card card{};
+  std::vector<uint8_t> in[2], out[2];
+  std::vector<int32_t> in_len[2], out_len[2];
+  std::vector<uint32_t> crc[2];
+  int fail_at = -1;
+  int submits = 0, waits = 0;
+};
+
+int host_card_submit(bgzf::Card* card, int s, int n) {
+  HostCard* h = reinterpret_cast<HostCard*>(card);
+  if (h->submits++ == h->fail_at) return 1;
+  const bgzf::CardSet& st = card->set[s];
+  for (int k = 0; k < n; ++k)
+    st.out_len[k] = bgzf_deflate_plain(st.in + k * bgzf::kMaxPayload,
+                                       st.in_len[k],
+                                       st.out + k * bgzf::kOutStride,
+                                       &st.crc[k]);
+  return 0;
+}
+
+int host_card_wait(bgzf::Card* card, int) {
+  ++reinterpret_cast<HostCard*>(card)->waits;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
+
+// --- the card's compressor on the host (tests only) -----------------------
+
+int ptio_bgzf_deflate_plain(const uint8_t* in, int n, uint8_t* out,
+                            uint32_t* crc) {
+  return bgzf_deflate_plain(in, n, out, crc);
+}
+
+void* ptio_bgzf_host_card(int max_blocks) {
+  HostCard* h = new HostCard();
+  h->card.submit = host_card_submit;
+  h->card.wait = host_card_wait;
+  h->card.max_blocks = max_blocks;
+  for (int s = 0; s < 2; ++s) {
+    h->in[s].resize((size_t)max_blocks * bgzf::kMaxPayload);
+    h->out[s].resize((size_t)max_blocks * bgzf::kOutStride);
+    h->in_len[s].resize(max_blocks);
+    h->out_len[s].resize(max_blocks);
+    h->crc[s].resize(max_blocks);
+    h->card.set[s] = {h->in[s].data(), h->in_len[s].data(), h->out[s].data(),
+                      h->out_len[s].data(), h->crc[s].data()};
+  }
+  return &h->card;  // the first member: the HostCard's own address
+}
+
+void ptio_bgzf_host_card_free(void* card) {
+  delete reinterpret_cast<HostCard*>(card);
+}
+
+// The chain entries that the match search looks at over in[0..n), n <=
+// 65280: the work that bounds the kernel (chip_smoke.py).
+long long ptio_bgzf_search_visits(const uint8_t* in, int n) {
+  std::vector<uint16_t> prev = hash_chains(in, n);
+  long long visits = 0;
+  for (int i = 0; i < n; ++i) bgzf::find_match(in, n, prev.data(), i, &visits);
+  return visits;
+}
+
+// Makes the host card's submit number `fail_at` fail.
+void ptio_bgzf_host_card_fail(void* card, int fail_at) {
+  reinterpret_cast<HostCard*>(card)->fail_at = fail_at;
+}
+
+// The host card's submits so far; *waits gets its waits.
+int ptio_bgzf_host_card_calls(void* card, int* waits) {
+  HostCard* h = reinterpret_cast<HostCard*>(card);
+  *waits = h->waits;
+  return h->submits;
+}
+
+// A writer that deflates through `card` (a bgzf::Card).
+void* ptio_writer_open_card(const char* path, int level, int n_threads,
+                            void* card) {
+  return writer_open(path, level, n_threads, nullptr,
+                     static_cast<bgzf::Card*>(card));
+}
 
 // --- reader ---------------------------------------------------------------
 
@@ -888,7 +1135,7 @@ int ptio_check_eof(const char* path) {
 // --- writer ---------------------------------------------------------------
 
 void* ptio_writer_open(const char* path, int level, int n_threads) {
-  return writer_open(path, level, n_threads, nullptr);
+  return writer_open(path, level, n_threads, nullptr, nullptr);
 }
 
 void ptio_write(void* h, const uint8_t* data, long long n) {
@@ -920,13 +1167,14 @@ int ptio_writer_close(void* h) {
     writer_submit(w, std::move(w->pending));
     w->pending.clear();
   }
-  if (w->n_threads > 1) {
+  if (w->io.joinable()) {
     {
       std::lock_guard<std::mutex> lk(w->mu);
       w->closing = true;
     }
     w->cv_work.notify_all();
     for (auto& t : w->pool) t.join();
+    if (w->codec.joinable()) w->codec.join();
     {
       std::lock_guard<std::mutex> lk(w->mu);
       w->io_closing = true;

@@ -2126,7 +2126,7 @@ void* ptscan_create(
     long long n_buckets, const int64_t* bucket_dims /*4 per bucket*/,
     long long batch_size, int is_target_region, const uint8_t* owned,
     int emit_unmapped, int prep_threads, void* ext_reader,
-    int resident_mode) {
+    int resident_mode, bgzf::Card* const* cards) {
   auto* h = new ScannerHandle();
   Scanner& sc = h->sc;
   // release any acquired reader/writers on every failure path (writer
@@ -2171,9 +2171,12 @@ void* ptscan_create(
           return fail();
       }
     }
-    sc.remapped =
-        writer_open(remapped_path, compression_level, writer_threads, &sc.ctr);
-    sc.unassembled = writer_open(unassembled_path, 6, writer_threads, &sc.ctr);
+    // cards: the remapped and the unassembled writer's codecs on the card
+    // (null: the host deflates)
+    sc.remapped = writer_open(remapped_path, compression_level, writer_threads,
+                              &sc.ctr, cards ? cards[0] : nullptr);
+    sc.unassembled = writer_open(unassembled_path, 6, writer_threads, &sc.ctr,
+                                 cards ? cards[1] : nullptr);
     if (!sc.remapped || !sc.unassembled) return fail();
   } catch (const std::exception&) {
     // exceptions must not cross the C ABI into ctypes (std::terminate)
@@ -2615,8 +2618,9 @@ void ptscan_timing(void* hv, long long* out9) {
 
 // The run's counters as one JSON object: "wait_ns" {"<site>@<role>": [ns,
 // waits]} for the waits that blocked, "cpu_ns" {role: ns} for the threads
-// the run started, "host_lift_ns" {"prep", "post"}, and "spans" [[name, t0,
-// t1]] of the native threads on CLOCK_MONOTONIC.  Complete after a
+// the run started, "host_lift_ns" {"prep", "post"}, "deflate_blocks"
+// {"card", "host"} and "deflate_launches" of the two writers, and "spans"
+// [[name, t0, t1]] of the native threads on CLOCK_MONOTONIC.  Complete after a
 // successful ptscan_finish, which has joined every thread of the run; the
 // text lives until the next call or ptscan_destroy.
 const char* ptscan_counters(void* hv) {
@@ -2635,7 +2639,11 @@ const char* ptscan_counters(void* hv) {
     o << (r > kMain + 1 ? ", " : "") << '"' << kRoleNames[r]
       << "\": " << sc.ctr.cpu_ns[r];
   o << "}, \"host_lift_ns\": {\"prep\": " << sc.host_lift_prep_ns.load()
-    << ", \"post\": " << sc.host_lift_post_ns << "}, \"spans\": [";
+    << ", \"post\": " << sc.host_lift_post_ns
+    << "}, \"deflate_blocks\": {\"card\": " << sc.ctr.deflate_card.load()
+    << ", \"host\": " << sc.ctr.deflate_host.load()
+    << "}, \"deflate_launches\": " << sc.ctr.deflate_launches.load()
+    << ", \"spans\": [";
   const std::pair<const char*, Scanner::Span> spans[] = {
       {"producer", sc.sp_producer},
       {"producer.first_slot", {sc.sp_producer.t0, sc.first_slot_ns}},

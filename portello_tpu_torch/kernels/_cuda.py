@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SO_PATH = os.path.join(BUILD_DIR, "libportello_kernels.so")
-SOURCES = ("compress.cu", "match_run.cu", "window_match.cu")
+SOURCES = ("compress.cu", "match_run.cu", "window_match.cu", "bgzf_deflate.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -125,6 +125,10 @@ def _bind(path: str):
     ]
     lib.ptt_window_match.restype = i
     lib.ptt_window_match.argtypes = [p, p, i, p, p, i, i, i, p, p, p]
+    lib.ptt_bgzf_deflate.restype = i
+    lib.ptt_bgzf_deflate.argtypes = [p, p, i, p, p, p, p, i, p]
+    lib.ptt_bgzf_card_create.restype = p
+    lib.ptt_bgzf_card_create.argtypes = [i, i, i]
     return lib
 
 

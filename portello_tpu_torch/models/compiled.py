@@ -86,13 +86,16 @@ class CudaGraph:
         would first run a full garbage collection and empty the allocator's
         cache, which in a CLI process holding a run's contig tables costs
         more than the capture; the collector is paused during the capture
-        instead, so that no collection frees tensors inside it."""
+        instead, so that no collection frees tensors inside it.  The
+        capture is thread-local: the BGZF writers' codec threads copy and
+        launch on their own streams while a call captures
+        (``kernels/bgzf_deflate.py``), which a global capture forbids."""
         collecting = gc.isenabled()
         gc.disable()
         try:
             torch.cuda.synchronize(self.stream.device)
             with torch.cuda.stream(self.stream):
-                self.graph.capture_begin()
+                self.graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     yield
                 finally:

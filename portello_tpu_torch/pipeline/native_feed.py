@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from portello_tpu_torch.kernels import _cuda
+from portello_tpu_torch.kernels.bgzf_deflate import writer_cards
 from portello_tpu_torch.kernels.resident import (
     build_global_ref,
     split_global_base,
@@ -211,6 +212,32 @@ def bind_lib(so_path: str):
     lib.ptscan_p1_error.restype = ctypes.c_char_p
     lib.ptscan_p1_error.argtypes = [ctypes.c_void_p]
     lib.ptscan_p1_destroy.argtypes = [ctypes.c_void_p]
+    # the card's BGZF compressor on the host, and a writer that deflates
+    # through a card (kernels/bgzf_deflate.py; tests)
+    lib.ptio_bgzf_deflate_plain.restype = ctypes.c_int
+    lib.ptio_bgzf_deflate_plain.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_uint32),
+    ]
+    lib.ptio_bgzf_search_visits.restype = ctypes.c_longlong
+    lib.ptio_bgzf_search_visits.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.ptio_bgzf_host_card.restype = ctypes.c_void_p
+    lib.ptio_bgzf_host_card.argtypes = [ctypes.c_int]
+    lib.ptio_bgzf_host_card_free.argtypes = [ctypes.c_void_p]
+    lib.ptio_bgzf_host_card_fail.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.ptio_bgzf_host_card_calls.restype = ctypes.c_int
+    lib.ptio_bgzf_host_card_calls.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.ptio_writer_open_card.restype = ctypes.c_void_p
+    lib.ptio_writer_open_card.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.ptio_writer_open.restype = ctypes.c_void_p
+    lib.ptio_writer_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+    lib.ptio_write.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_longlong]
+    lib.ptio_writer_close.restype = ctypes.c_int
+    lib.ptio_writer_close.argtypes = [ctypes.c_void_p]
     # seq nibble codec debug surface (tests/test_simd_codecs.py)
     lib.ptscan_dbg_seqcodec.restype = None
     lib.ptscan_dbg_seqcodec.argtypes = [
@@ -236,7 +263,8 @@ def get_lib():
             return _lib
         deps = [_SRC,
                 os.path.join(os.path.dirname(_SRC), "ptio.cc"),
-                os.path.join(os.path.dirname(_SRC), "ptcore.cc")]
+                os.path.join(os.path.dirname(_SRC), "ptcore.cc"),
+                os.path.join(_HERE, "..", "csrc", "bgzf_deflate.h")]
         if not os.path.exists(_SO) or any(
             os.path.getmtime(d) > os.path.getmtime(_SO) for d in deps
         ):
@@ -336,10 +364,11 @@ def create_scanner(
     thread_count: int,
     push_reader=None,
     resident: bool = False,
+    cards=None,
 ):
     """Marshal the phase-1 index + config and call ``ptscan_create``.
 
-    The single owner of the 36-positional-argument ABI (also used by the
+    The single owner of the 37-positional-argument ABI (also used by the
     jax-free TSAN harness, scripts/tsan_native.py).  Returns ``(handle,
     keepalive)`` — the C++ scanner keeps RAW POINTERS into the index and
     reference arrays, so the caller must hold ``keepalive`` (and the
@@ -349,6 +378,9 @@ def create_scanner(
     index; no ref_win/read_seq tables) — kernels/resident.py.  The C++ side
     additionally requires host-shift routing and silently falls back to
     table slots under PTPU_HOST_SHIFT=0; the feed mirrors that condition.
+
+    ``cards``: the two writers' codecs on the card
+    (``kernels.bgzf_deflate.writer_cards``); None deflates on the host.
     """
     idx = _flat_index(contig_list, all_contig_mapping_info)
 
@@ -411,6 +443,7 @@ def create_scanner(
         ctypes.c_int(emit_unmapped), ctypes.c_int(max(1, thread_count)),
         push_reader if push_reader is not None else ctypes.c_void_p(None),
         ctypes.c_int(1 if resident else 0),
+        cards if cards is not None else ctypes.c_void_p(None),
     )
     h = ctypes.c_void_p(h)
     if not h:
@@ -632,7 +665,12 @@ def scan_and_remap_reads_native(
     - ``cpu_s``: CPU seconds by thread role, ``spans.cpu_s`` (the native
       threads' here, the main thread's when the caller closes the call);
     - ``host_lift_s``: seconds in the exact host path, by call site
-      (``prep``, ``post``).
+      (``prep``, ``post``);
+    - ``deflate_blocks``: the two writers' BGZF blocks deflated on the card
+      and on the host (``{"card": n, "host": n}``), and ``deflate_launches``,
+      the card's launches: on ``cuda`` the writers deflate there
+      (``kernels/bgzf_deflate.py``), each level-6 writer through one codec
+      thread whose waits for the card count as ``card_deflate done@deflate``.
 
     The list and the ``cpu_s`` dict are the recorder's own, so what the
     caller records after the run returns reaches the stats.
@@ -716,12 +754,13 @@ def scan_and_remap_reads_native(
 
     try:
         with spans.span("startup.scanner"):
+            cards = writer_cards(torch.device(device))
             h, _keepalive = create_scanner(
                 lib, read_to_assembly_bam, remapped_read_output,
                 unassembled_read_output, header, reference, ref_chrom_list,
                 contig_list, all_contig_mapping_info, buckets, batch_size,
                 is_target_region, shard_plan, thread_count,
-                push_reader=push_handle, resident=resident,
+                push_reader=push_handle, resident=resident, cards=cards,
             )
     except BaseException:
         # create failed: the scanner did not take reader ownership; after
@@ -912,6 +951,12 @@ def scan_and_remap_reads_native(
         f"batches per bucket {per_bucket})"
     )
     logger.info(compiled_steps_line(stats, mesh, n_batches))
+    deflated = counters["deflate_blocks"]
+    logger.info(
+        f"BGZF blocks: {deflated['card']} deflated on the card in "
+        f"{counters['deflate_launches']} launches, {deflated['host']} on the "
+        "host"
+    )
     waits = counters["wait_ns"]
     stats.update({f"t_native_{n}": timing_buf[i] / 1e9
                   for i, n in enumerate(NATIVE_PHASES)})
@@ -921,6 +966,8 @@ def scan_and_remap_reads_native(
         "waits": {k: n for k, (_, n) in waits.items()},
         "cpu_s": spans.cpu_s,
         "host_lift_s": {k: ns / 1e9 for k, ns in counters["host_lift_ns"].items()},
+        "deflate_blocks": deflated,
+        "deflate_launches": counters["deflate_launches"],
         "spans": spans.spans,
         "call_id": spans.call_id,
         "clock_offset_ns": spans.clock_offset_ns,
