@@ -240,11 +240,16 @@ def kw_key(kw: dict) -> tuple:
 
 class StepCache:
     """The compiled steps of one run, keyed as ``jax.jit`` keys its
-    executables.  Dropping the cache frees its graphs, their memory pools
-    and the staging buffers of the sharded steps it holds."""
+    executables.  ``clear`` frees its graphs, their memory pools and the
+    staging buffers and genome replicas of the sharded steps it holds at
+    once; a dropped cache frees them at Python's next cyclic collection,
+    since each sharded step refers back to it."""
 
     def __init__(self):
         self._entries: dict = {}
+
+    def clear(self) -> None:
+        self._entries.clear()
 
     def graphs(self) -> list[Captured]:
         return [e for e in self._entries.values() if isinstance(e, Captured)]

@@ -573,6 +573,17 @@ def _resident_slot_arrays(d, bcfg, bs: int, goff: np.ndarray
     )
 
 
+# The first superblock at or past byte 2^31 of the resident genome.
+_SB_2G = (1 << 31) >> 6
+
+
+def _items_past_2g(g_sb: np.ndarray, count: int) -> int:
+    """How many of a resident slot's ``count`` items (its filled rows; the
+    rest pad the slot) have a global base at or past byte 2^31, from their
+    superblock indices ``g_sb``."""
+    return int(np.count_nonzero(g_sb[:count] >= _SB_2G))
+
+
 def host_shift_routing() -> bool:
     """The native feed's routing, read exactly as its C++ scanner reads it
     (``ptscan_create`` in ``io/native/ptscan.cc``): device-shift routing when
@@ -666,6 +677,10 @@ def scan_and_remap_reads_native(
       threads' here, the main thread's when the caller closes the call);
     - ``host_lift_s``: seconds in the exact host path, by call site
       (``prep``, ``post``);
+    - ``genome_bytes``: the bytes of the resident genome uploaded to each
+      device (0 on table slots), and ``items_past_2g``, the resident items
+      whose global base is at or past byte 2^31, beside the spans
+      ``startup.genome_build`` and ``startup.genome_upload``;
     - ``deflate_blocks``: the two writers' BGZF blocks deflated on the card
       and on the host (``{"card": n, "host": n}``), and ``deflate_launches``,
       the card's launches: on ``cuda`` the writers deflate there
@@ -715,11 +730,13 @@ def scan_and_remap_reads_native(
         logger.info(f"Sharding batches over {len(mesh)} local devices")
     mesh = mesh or [torch.device(device)]
     genomes = res_goff = None
+    genome_bytes = 0
     if resident:
         # the genome goes to the device once and stays there for the run;
         # under sharding, once to each distinct device of the mesh
         with spans.span("startup.genome_build") as built:
             words, res_goff = build_global_ref(reference)
+        genome_bytes = words.nbytes
         with spans.span("startup.genome_upload") as uploaded:
             genomes = replicate(mesh, words)
             for g in genomes:
@@ -783,7 +800,7 @@ def scan_and_remap_reads_native(
     stats_buf = (ctypes.c_longlong * 6)()
     timing_buf = (ctypes.c_longlong * 9)()
     desc = _BatchDesc()
-    n_batches = n_rev = 0
+    n_batches = n_rev = items_past_2g = 0
     h2d_bytes = h2d_rev = 0
     per_bucket = [0] * len(buckets)
     launches_before = dict(_cuda.launch_counts)
@@ -796,7 +813,7 @@ def scan_and_remap_reads_native(
     cache = StepCache()
 
     def dispatch(d):
-        nonlocal h2d_bytes, h2d_rev, n_rev
+        nonlocal h2d_bytes, h2d_rev, n_rev, items_past_2g
         bcfg = buckets[int(d.bucket)]
         per_bucket[int(d.bucket)] += 1
         # fixed shape: slots are always batch_size rows (EOF partials are
@@ -810,6 +827,8 @@ def scan_and_remap_reads_native(
         elif resident:
             kind = "fwd_resident"
             args = _resident_slot_arrays(d, bcfg, batch_size, res_goff)
+            # args[7]: the items' superblocks (fwd_batch_resident's g_sb)
+            items_past_2g += _items_past_2g(args[7], int(d.count))
         else:
             kind, args = "fwd", _slot_arrays(d, bcfg, batch_size)
         step = sharded_step(cache, kind, mesh, batch_size, bucket_kwargs(bcfg),
@@ -936,8 +955,14 @@ def scan_and_remap_reads_native(
             k: v - launches_before[k] for k, v in _cuda.launch_counts.items()
         },
         "shards": len(mesh),
+        "genome_bytes": genome_bytes,
+        "items_past_2g": items_past_2g,
         **cache.stats(),
     }
+    # free the run's graphs, staging and genome now, not at a later cyclic
+    # collection: on a whole GRCh38 each call left behind holds 3.09 GB of
+    # the card
+    cache.clear()
     logger.info(
         f"Lifted {stats['n_primary']} primary reads: "
         f"{stats['device_items']} device work items, "
@@ -985,6 +1010,13 @@ def scan_and_remap_reads_native(
                 for k, v in sorted(stats["wait_s"].items()))
             + "; cpu: " + ", ".join(
                 f"{k} {v:.3f}s" for k, v in spans.cpu_s.items())
+        )
+        logger.info(
+            f"resident genome: {genome_bytes} bytes a device, built in "
+            f"{timers.get('startup.genome_build', 0.0):.3f}s, uploaded in "
+            f"{timers.get('startup.genome_upload', 0.0):.3f}s; "
+            f"{items_past_2g} of {stats['device_items']} device items past "
+            "byte 2^31"
         )
     global _last_stats
     _last_stats = stats

@@ -126,11 +126,12 @@ EXPECTED_EDITS = {
 
 
 # Copies that the port has changed on purpose since: the native feed's
-# sources, which carry the port's waits, CPU seconds and spans.  Each
+# sources, which carry the port's waits, CPU seconds and spans, and the
+# FASTA parser, which drops line ends and uppercases in one pass.  Each
 # differs from its original by the unified diff kept in EDITS_DIR; after a
 # deliberate change, ``PYTHONPATH=. python tests/test_torch_self_contained.py``
 # writes the diffs anew.
-DIFFED = ("io/native/ptscan.cc", "io/native/ptio.cc")
+DIFFED = ("io/native/ptscan.cc", "io/native/ptio.cc", "io/fasta.py")
 EDITS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "port_edits")
 
