@@ -12,6 +12,13 @@ int32 split or its barrel realign, which are TPU layout: ``global_base``
 joins the split into an int64 byte offset and the genome is indexed
 directly.  A GRCh38-sized genome is about 3.1 GB, so offsets pass 2^31.
 
+The native feed does not go through ``build_global_ref``: ``alloc_genome``
+lays the table out from the chromosome lengths alone (``genome_layout``) and
+writes its pads on each device, and ``upload_genome`` copies each
+chromosome into its place, on a card through a few pinned staging buffers
+(``chunk_plan``), on the CPU by slice assignment.  The bytes are
+``build_global_ref``'s, every one.
+
 ``ref_windows`` and ``read_windows_packed`` are the plain window fetches of
 stage 4.  They equal ``fetch_ref_windows_global`` and
 ``fetch_read_windows_packed`` byte for byte, including what they read
@@ -22,6 +29,8 @@ an even base position and ``'D'`` at an odd one.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -29,6 +38,14 @@ SB = 64  # superblock bytes in the global reference table
 SEQ_SYMBOLS = b"=ACMGRSVTWYHKDBN"  # BAM 4-bit code -> ASCII (ptscan kSeqChars)
 _REF_PAD = ord("N")
 PACKED_FILL = 0xFD  # packed byte read outside a row
+
+# The card's genome goes up through one pinned buffer of STAGE_BYTES for
+# each of STAGE_THREADS host threads.  On an H100's host the host's copies
+# set the pace: four threads reach 25 GB/s of the link's 53, more gain
+# under a tenth while taking the host's other cores, and buffers of 32 MiB
+# or more were slower at every thread count.
+STAGE_BYTES = 16 << 20
+STAGE_THREADS = 4
 
 # host-side ASCII -> BAM nibble code (total on the 16-symbol alphabet; read
 # sequences are always inside it: BAM decode emits exactly these chars and
@@ -64,6 +81,138 @@ def build_global_ref(reference) -> tuple[np.ndarray, np.ndarray]:
     parts.append(np.full(2 * SB, _REF_PAD, np.uint8))
     cat = np.concatenate(parts)
     return cat.reshape(-1, SB).view(np.uint32).copy(), goff
+
+
+def genome_layout(lengths) -> tuple[np.ndarray, int]:
+    """``build_global_ref``'s layout from the chromosome lengths alone: the
+    int64 global byte offset of each chromosome and the table's bytes."""
+    padded = -(-np.asarray(lengths, np.int64) // SB) * SB
+    goff = np.empty(len(padded), np.int64)
+    goff[:1] = SB
+    np.cumsum(padded[:-1], out=goff[1:])
+    goff[1:] += SB
+    return goff, SB + int(padded.sum()) + 2 * SB
+
+
+def pad_ranges(lengths, goff: np.ndarray, total: int) -> list[tuple[int, int]]:
+    """The ``[start, stop)`` byte ranges of the table that hold no
+    chromosome byte: the front pad superblock, each chromosome's tail pad
+    up to its next 64-byte boundary, and the two tail superblocks."""
+    ranges = [(0, SB)]
+    for n, off in zip(lengths, goff.tolist()):
+        if n % SB:
+            ranges.append((off + n, off + n + (-n) % SB))
+    ranges.append((total - 2 * SB, total))
+    return ranges
+
+
+def chunk_plan(lengths, goff: np.ndarray, chunk: int) -> list[tuple[int, int, int, int]]:
+    """Each chromosome cut into copies of at most ``chunk`` bytes:
+    ``(chromosome, source offset, destination offset, bytes)``, in table
+    order.  Together they cover every chromosome byte once and no pad."""
+    plan = []
+    for c, (n, off) in enumerate(zip(lengths, goff.tolist())):
+        for s in range(0, n, chunk):
+            plan.append((c, s, off + s, min(chunk, n - s)))
+    return plan
+
+
+def alloc_genome(lengths, devices) -> tuple[np.ndarray, dict]:
+    """The genome's build: its layout, one flat uint8 table on each distinct
+    device of ``devices`` and the ``N`` of its pads.  Returns ``(goff,
+    tables)``, ``tables`` by device; ``upload_genome`` writes the
+    chromosomes.  A CPU table aliases a numpy buffer."""
+    goff, total = genome_layout(lengths)
+    pads = pad_ranges(lengths, goff, total)
+    tables = {}
+    for dev in dict.fromkeys(torch.device(d) for d in devices):
+        if dev.type == "cpu":
+            flat = np.empty(total, np.uint8)
+            for a, b in pads:
+                flat[a:b] = _REF_PAD
+            tables[dev] = torch.from_numpy(flat)
+        else:
+            t = torch.empty(total, dtype=torch.uint8, device=dev)
+            for a, b in pads:
+                t[a:b].fill_(_REF_PAD)
+            tables[dev] = t
+    return goff, tables
+
+
+def upload_genome(reference, goff: np.ndarray, tables: dict) -> tuple[int, int]:
+    """Every chromosome of ``reference`` into its place in each of
+    ``alloc_genome``'s ``tables``; returns when the bytes are there.
+
+    A CPU table is written by slice assignment.  The cards' tables are
+    written through pinned staging: each of ``STAGE_THREADS`` host threads
+    copies its share of ``chunk_plan``'s chunks of ``STAGE_BYTES`` into its
+    own pinned buffer and queues the chunk's copy to every card on that
+    card's copy stream, waiting on the buffer's last copies before it fills
+    it again, so the threads' host copies overlap each other's DMA.  The
+    buffers are zeroed before they go, so no byte of the reference outlives
+    the call in pinned memory.  Returns ``(staged bytes, staged copies)``,
+    summed over the cards (0 on the CPU)."""
+    arrays = [np.ascontiguousarray(r, dtype=np.uint8) for r in reference]
+    lengths = [len(a) for a in arrays]
+    cards = []
+    for dev, table in tables.items():
+        if dev.type == "cpu":
+            flat = table.numpy()
+            for a, off in zip(arrays, goff.tolist()):
+                flat[off:off + len(a)] = a
+        else:
+            cards.append(dev)
+    if not cards:
+        return 0, 0
+    chunk, threads = STAGE_BYTES, STAGE_THREADS
+    plan = chunk_plan(lengths, goff, chunk)
+    streams = {}
+    for dev in cards:
+        streams[dev] = torch.cuda.Stream(dev)
+        # the table's allocation and pads were queued on the current stream
+        streams[dev].wait_stream(torch.cuda.current_stream(dev))
+    errors = []
+
+    def work(share) -> None:
+        try:
+            stage(share)
+        except Exception as exc:  # raised again by the calling thread
+            errors.append(exc)
+
+    def stage(share) -> None:
+        buf = torch.empty(chunk, dtype=torch.uint8, pin_memory=True)
+        view = buf.numpy()
+        done, filled = [], 0
+        try:
+            for c, src, dst, n in share:
+                for e in done:
+                    e.synchronize()
+                view[:n] = arrays[c][src:src + n]
+                filled = max(filled, n)
+                done = []
+                for dev in cards:
+                    with torch.cuda.stream(streams[dev]):
+                        tables[dev][dst:dst + n].copy_(buf[:n], non_blocking=True)
+                        e = torch.cuda.Event()
+                        e.record(streams[dev])
+                    done.append(e)
+        finally:
+            for e in done:
+                e.synchronize()
+            view[:filled] = 0
+
+    workers = [threading.Thread(target=work, args=(plan[t::threads],),
+                                name=f"genome-stage-{t}")
+               for t in range(min(threads, len(plan)))]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    for dev in cards:
+        torch.cuda.synchronize(dev)
+    if errors:
+        raise errors[0]
+    return sum(lengths) * len(cards), len(plan) * len(cards)
 
 
 def split_global_base(gbyte) -> tuple[np.ndarray, np.ndarray]:

@@ -13,9 +13,9 @@ The dispatch loop is the port's:
 
 Slots come in two modes.  Resident slot mode (the default; ``PTPU_RESIDENT=0``
 selects table slots) keeps the whole genome on the device for the run,
-built once by ``build_global_ref``; a slot then holds the padded cigars,
-block maps, the read rows packed as BAM nibbles and each item's reference
-chromosome, and the step is ``fwd_batch_resident``.  Table slots
+built once by ``alloc_genome`` and ``upload_genome``; a slot then holds the
+padded cigars, block maps, the read rows packed as BAM nibbles and each
+item's reference chromosome, and the step is ``fwd_batch_resident``.  Table slots
 (``resident=False``) hold the ``(B, max_seq)`` ref-window and read rows
 instead, and the step is ``fwd_batch``.  Host-shift routing
 (``PTPU_HOST_SHIFT``, on by default) left-shifts reverse-contig items during
@@ -58,8 +58,9 @@ import torch
 from portello_tpu_torch.kernels import _cuda
 from portello_tpu_torch.kernels.bgzf_deflate import writer_cards
 from portello_tpu_torch.kernels.resident import (
-    build_global_ref,
+    alloc_genome,
     split_global_base,
+    upload_genome,
 )
 from portello_tpu_torch.models.compiled import StepCache, compiled_steps_line
 from portello_tpu_torch.models.pipeline_model import (
@@ -67,7 +68,6 @@ from portello_tpu_torch.models.pipeline_model import (
     bucket_kwargs,
 )
 from portello_tpu_torch.parallel.mesh import (
-    replicate,
     sharded_step,
     sharding_mesh,
 )
@@ -678,9 +678,13 @@ def scan_and_remap_reads_native(
     - ``host_lift_s``: seconds in the exact host path, by call site
       (``prep``, ``post``);
     - ``genome_bytes``: the bytes of the resident genome uploaded to each
-      device (0 on table slots), and ``items_past_2g``, the resident items
-      whose global base is at or past byte 2^31, beside the spans
-      ``startup.genome_build`` and ``startup.genome_upload``;
+      device (0 on table slots); ``genome_staged_bytes`` and
+      ``genome_chunks``, the chromosome bytes and the copies that went to
+      the cards through pinned staging (0 on the CPU); and
+      ``items_past_2g``, the resident items whose global base is at or past
+      byte 2^31; beside the spans ``startup.genome_build`` (layout,
+      allocation, pads) and ``startup.genome_upload`` (every chromosome
+      byte's copy, through its synchronize);
     - ``deflate_blocks``: the two writers' BGZF blocks deflated on the card
       and on the host (``{"card": n, "host": n}``), and ``deflate_launches``,
       the card's launches: on ``cuda`` the writers deflate there
@@ -730,23 +734,25 @@ def scan_and_remap_reads_native(
         logger.info(f"Sharding batches over {len(mesh)} local devices")
     mesh = mesh or [torch.device(device)]
     genomes = res_goff = None
-    genome_bytes = 0
+    genome_bytes = staged_bytes = staged_chunks = 0
     if resident:
         # the genome goes to the device once and stays there for the run;
-        # under sharding, once to each distinct device of the mesh
+        # under sharding, once to each distinct device of the mesh.  The
+        # build lays it out and writes its pads there, the upload copies
+        # the chromosomes in, through pinned staging on a card
         with spans.span("startup.genome_build") as built:
-            words, res_goff = build_global_ref(reference)
-        genome_bytes = words.nbytes
+            res_goff, tables = alloc_genome([len(r) for r in reference], mesh)
         with spans.span("startup.genome_upload") as uploaded:
-            genomes = replicate(mesh, words)
-            for g in genomes:
-                if g.is_cuda:
-                    torch.cuda.synchronize(g.device)
+            staged_bytes, staged_chunks = upload_genome(reference, res_goff,
+                                                        tables)
+        genomes = [tables[torch.device(d)] for d in mesh]
+        genome_bytes = genomes[0].numel()
         logger.info(
-            f"Resident genome: {words.nbytes / 2**20:.1f} MiB on "
-            f"{', '.join(sorted({str(g.device) for g in genomes}))} "
+            f"Resident genome: {genome_bytes / 2**20:.1f} MiB on "
+            f"{', '.join(str(g.device) for g in tables.values())} "
             f"(built in {spans.seconds(built):.2f} s, uploaded in "
-            f"{spans.seconds(uploaded):.2f} s); packed read rows"
+            f"{spans.seconds(uploaded):.2f} s; {staged_bytes} bytes staged "
+            f"in {staged_chunks} pinned copies); packed read rows"
         )
 
     push_handle = None
@@ -956,6 +962,8 @@ def scan_and_remap_reads_native(
         },
         "shards": len(mesh),
         "genome_bytes": genome_bytes,
+        "genome_staged_bytes": staged_bytes,
+        "genome_chunks": staged_chunks,
         "items_past_2g": items_past_2g,
         **cache.stats(),
     }

@@ -214,9 +214,14 @@ def test_run_frees_its_genome_when_it_returns(tmp_path, monkeypatch):
     make_scenario(d, rng=np.random.default_rng(5), n_reads_per_contig=10,
                   read_len=300)
     replicas = []
-    replicate = nf.replicate
-    monkeypatch.setattr(nf, "replicate", lambda mesh, words: [
-        replicas.append(weakref.ref(g)) or g for g in replicate(mesh, words)])
+    alloc = nf.alloc_genome
+
+    def alloc_kept(lengths, mesh):
+        goff, tables = alloc(lengths, mesh)
+        replicas.extend(weakref.ref(g) for g in tables.values())
+        return goff, tables
+
+    monkeypatch.setattr(nf, "alloc_genome", alloc_kept)
     monkeypatch.delenv("PTPU_RESIDENT", raising=False)
     monkeypatch.delenv("PTPU_HOST_SHIFT", raising=False)
     was_enabled = gc.isenabled()

@@ -6,7 +6,7 @@ main thread's phases cover the call; ``clock_offset_ns`` puts the call where
 ``torch.profiler`` saw it; the wait, CPU and host-path counters agree with
 the feed's timers and the process's CPU clock; ``--profile`` writes the
 spans into its Chrome trace.  On the card, the genome's upload span
-encloses its pageable copy to the device:
+encloses its staged copies to the device, from pinned memory:
 
     python -m pytest --noconftest tests/test_torch_spans.py -m cuda
 
@@ -195,11 +195,16 @@ def cuda_device():
 def test_genome_upload_span_encloses_its_copy(scenario, tmp_path, cuda_device):
     port.main(_args(scenario, "prof_cuda", cuda_device, "--profile", str(tmp_path)))
     trace = _trace(tmp_path / "trace.json")
-    upload = _spans(trace)["startup.genome_upload"]
+    spans = _spans(trace)
+    upload = spans["startup.genome_upload"]
+    # the genome's copies are the call's only ones before its scanner
     copies = [e for e in trace["traceEvents"] if e.get("ph") == "X"
-              and "HtoD" in e.get("name", "") and "Pageable" in e.get("name", "")]
-    genome = max(copies, key=lambda e: e.get("args", {}).get("bytes", 0))
+              and "HtoD" in e.get("name", "")
+              and e["ts"] < spans["startup.scanner"]["ts"]]
+    assert len(copies) == native_feed._last_stats["genome_chunks"] > 0
     slack = 1000  # us
-    assert upload["ts"] - slack <= genome["ts"]
-    assert genome["ts"] + genome["dur"] <= upload["ts"] + upload["dur"] + slack
+    for genome in copies:
+        assert "Pinned" in genome["name"]
+        assert upload["ts"] - slack <= genome["ts"]
+        assert genome["ts"] + genome["dur"] <= upload["ts"] + upload["dur"] + slack
     assert os.path.getsize(tmp_path / "ops.txt") > 0
